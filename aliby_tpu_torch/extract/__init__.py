@@ -1,1 +1,1 @@
-"""Per-label reductions."""
+"""Per-label reductions, the feature bank and the feature-tree executor."""

@@ -1,0 +1,300 @@
+"""Feature-tree compiler and batched executor (counterpart of
+``aliby_tpu/extract/extract.py``).
+
+A feature tree (``{channel: {z_reduction: [metrics]}}`` plus channel pairs
+for colocalisation) flattens into instructions; :func:`compile_plan` dedups
+them into plan entries over image slots (channel, z-reduction), and
+:func:`tree_collect` evaluates every entry over a batch of label maps into
+one ``(n_names, F, max_labels)`` block. :class:`FusedTreeResult` turns that
+block back into the reference's ``(tileid_instructions, results)`` rows or
+its wide table.
+
+Ported families: ``sizeshape``, ``intensity`` and ``feret`` (the
+mask/image families) and the colocalisation pair (``corr``). The others
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from itertools import product
+
+import numpy as np
+import torch
+
+from aliby_tpu_torch.extract import features
+
+# ---------------------------------------------------------------------------
+# Tree flattening (reference extract.py:33-74 semantics)
+# ---------------------------------------------------------------------------
+
+
+def flatten(tree: dict, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, (*prefix, k)))
+        else:
+            out[(*prefix, k)] = v
+    return out
+
+
+def kv(flat: dict) -> list[tuple]:
+    return [(*path, metric) for path, metrics in flat.items() for metric in metrics]
+
+
+# ---------------------------------------------------------------------------
+# Family registry
+# ---------------------------------------------------------------------------
+
+# cp_measure core families by name -> kind: "mask" -> (labels),
+# "image" -> (labels, img)
+_CP_FAMILY_KIND = {
+    "sizeshape": "mask",
+    "intensity": "image",
+    "texture": "image",
+    "granularity": "image",
+    "zernike": "mask",
+    "feret": "mask",
+    "radial_distribution": "image",
+    "radial_zernikes": "image",
+}
+
+# the scalar metric names of extract/cellfuns.py (the yeast/trap path)
+MASK_METRICS = ("area", "eccentricity", "volume", "conical_volume",
+                "spherical_volume", "centroid_x", "centroid_y")
+PIXEL_METRICS = ("mean", "total", "total_squared", "median", "max2p5pc",
+                 "max5px_median", "std", "moment_of_inertia")
+TRAP_METRICS = ("imBackground", "background_max5")
+
+_TEXTURE_ITEM = "extract/texture.py (ROADMAP queue 1, item 7)"
+_CELLFUNS_ITEM = "extract/cellfuns.py and extract/localisation.py (ROADMAP queue 1, item 10)"
+
+
+def _cp_family_fn(name: str):
+    if name == "sizeshape":
+        return lambda labels, max_labels, **kw: features.sizeshape(labels, max_labels)
+    if name == "intensity":
+        return lambda labels, img, max_labels, **kw: features.intensity(
+            labels, img, max_labels, edge_measurements=kw.get("edge_measurements", True)
+        )
+    if name == "feret":
+        return lambda labels, max_labels, **kw: features.feret(labels, max_labels)
+    if name in _CP_FAMILY_KIND:
+        raise NotImplementedError(f"feature family {name!r}: {_TEXTURE_ITEM}")
+    raise KeyError(name)
+
+
+def _img2d(imgs, slot):
+    im = imgs[slot]
+    return im.amax(dim=1) if im.dim() == 4 else im
+
+
+def _entry_values(entry, labels, imgs, max_labels) -> dict:
+    """Evaluate one plan entry over (F, H, W) labels -> {name: (F, L)}."""
+    kind = entry[0]
+    if kind == "mask_family":
+        _, metric, kw_items = entry
+        return _cp_family_fn(metric)(labels, max_labels=max_labels, **dict(kw_items))
+    if kind == "image_family":
+        _, metric, kw_items, slot = entry
+        return _cp_family_fn(metric)(labels, _img2d(imgs, slot), max_labels=max_labels,
+                                     **dict(kw_items))
+    if kind == "corr":
+        _, metric, s0, s1 = entry
+        return features.CORRELATION_FEATURES[metric](labels, _img2d(imgs, s0),
+                                                     _img2d(imgs, s1), max_labels)
+    if kind in ("mask_scalar", "pixel_scalar", "localisation", "trap", "comb_scalar"):
+        raise NotImplementedError(f"plan entry {kind!r}: {_CELLFUNS_ITEM}")
+    raise AssertionError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Plans
+# ---------------------------------------------------------------------------
+
+
+def compile_plan(instructions: list[tuple], cpkw: dict):
+    """Compile instructions into (deduped plan entries, image slots,
+    per-instruction lookup), as the reference's ``compile_plan``."""
+    slot_of: dict = {}
+
+    def slot(ch, red):
+        return slot_of.setdefault((ch, red), len(slot_of))
+
+    entries: list = []
+    entry_index: dict = {}
+
+    def add_entry(e: tuple) -> int:
+        if e not in entry_index:
+            entry_index[e] = len(entries)
+            entries.append(e)
+        return entry_index[e]
+
+    inst_lookup: dict = {}
+    for inst in instructions:
+        if len(inst) == 3:
+            ch, red_z, metric = inst
+            if metric in _CP_FAMILY_KIND:
+                kind = _CP_FAMILY_KIND[metric]
+                kw_items = tuple(sorted(cpkw.get(metric, {}).items()))
+                if kind == "mask":
+                    e = ("mask_family", metric, kw_items)
+                else:
+                    e = ("image_family", metric, kw_items, slot(ch, red_z))
+                inst_lookup[inst] = ("dict", add_entry(e), None)
+            elif metric in MASK_METRICS:
+                inst_lookup[inst] = ("scalar", add_entry(("mask_scalar",)), metric)
+            elif metric in PIXEL_METRICS:
+                e = ("pixel_scalar", slot(ch, red_z))
+                inst_lookup[inst] = ("scalar", add_entry(e), metric)
+            elif metric in ("nuc_est_conv", "small_peaks_conv"):
+                e = ("localisation", metric, slot(ch, red_z))
+                inst_lookup[inst] = ("scalar", add_entry(e), metric)
+            elif metric in TRAP_METRICS:
+                e = ("trap", slot(ch, red_z))
+                inst_lookup[inst] = ("scalar", add_entry(e), metric)
+            else:
+                raise KeyError(f"Unknown metric {metric!r}")
+        else:  # multi-channel: (pair, red_ch, red_z, metric)
+            pair, red_ch, red_z, metric = inst
+            s0, s1 = slot(pair[0], red_z), slot(pair[1], red_z)
+            if red_ch in ("None", None):
+                inst_lookup[inst] = ("dict", add_entry(("corr", metric, s0, s1)), None)
+            else:
+                e = ("comb_scalar", red_ch, s0, s1)
+                inst_lookup[inst] = ("scalar", add_entry(e), metric)
+    return tuple(entries), slot_of, inst_lookup
+
+
+def reduce_z_traced(img: torch.Tensor, method, dim: int = 0) -> torch.Tensor:
+    """Z-reduction of ``img`` over ``dim`` (the reference's device-side
+    ``reduce_z_traced``, batched)."""
+    if method is None or method == "None":
+        return img
+    m = str(method)
+    if m == "max":
+        return img.amax(dim=dim)
+    if m == "min":
+        return img.amin(dim=dim)
+    if m == "mean":
+        return img.mean(dim=dim)
+    if m == "median":
+        return torch.quantile(img, 0.5, dim=dim, interpolation="midpoint")  # jnp.median
+    if m in ("add", "sum"):
+        return img.sum(dim=dim)
+    raise KeyError(f"Unknown z-reduction {method!r}")
+
+
+def tree_collect(plan_sig, labels: torch.Tensor, imgs, max_labels: int):
+    """Evaluate every plan entry -> (sorted names ``"{entry}::{feature}"``,
+    (n, F, max_labels) tensor)."""
+    n_zernike = sum(
+        1 for e in plan_sig
+        if (e[0] == "mask_family" and e[1] == "zernike")
+        or (e[0] == "image_family" and e[1] == "radial_zernikes")
+    )
+    if n_zernike >= 2:
+        raise NotImplementedError(f"the shared zernike family pass: {_TEXTURE_ITEM}")
+    outputs = {}
+    for idx, entry in enumerate(plan_sig):
+        for name, v in _entry_values(entry, labels, imgs, max_labels).items():
+            outputs[f"{idx}::{name}"] = v
+    names = sorted(outputs)
+    if not names:
+        # an empty tree is legal (a pair-less coloc tree for single-channel
+        # extraction): a 0-row feature block
+        return [], torch.zeros((0, labels.shape[0], max_labels), device=labels.device)
+    return names, torch.stack([outputs[n] for n in names])
+
+
+class FusedTreeResult:
+    """Lazy stand-in for the reference's ``(tileid_instructions, results)``
+    pair: holds one tree's ``(n_names, F, L)`` block plus the plan lookup,
+    and builds the per-(tile, label, instruction) rows only when unpacked.
+    :meth:`columns` gives the wide table's columns as numpy arrays;
+    :meth:`to_table` wraps them in a pyarrow table."""
+
+    def __init__(self, instructions, inst_lookup, names, arr, n_per_tile):
+        self.instructions = tuple(instructions)
+        self.inst_lookup = inst_lookup
+        self.names = list(names)
+        self.arr = np.asarray(arr)  # (n_names, F, max_labels)
+        self.n_per_tile = [int(n) for n in n_per_tile]
+        self._rows = None
+
+    # -- (tileid_instructions, results) 2-tuple protocol ------------------
+    def _materialize(self):
+        if self._rows is not None:
+            return self._rows
+        F = len(self.n_per_tile)
+        ind_masks = [(f, l) for f in range(F) for l in range(1, self.n_per_tile[f] + 1)]
+        tileid_instructions = tuple(product(ind_masks, self.instructions))
+        dict_views: dict = {}
+        for i, name in enumerate(self.names):
+            idx_str, feat = name.split("::", 1)
+            dict_views.setdefault(int(idx_str), {})[feat] = self.arr[i]
+        results = []
+        for (tile_i, label), inst in tileid_instructions:
+            mode, entry_idx, metric = self.inst_lookup[inst]
+            if mode == "scalar":
+                results.append(float(dict_views[entry_idx][metric][tile_i, label - 1]))
+            else:
+                results.append({k: np.asarray([v[tile_i, label - 1]])
+                                for k, v in dict_views[entry_idx].items()})
+        self._rows = (tileid_instructions, results)
+        return self._rows
+
+    def __len__(self):
+        return 2
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    @property
+    def tileid_instructions(self):
+        return self._materialize()[0]
+
+    def columns(self) -> dict:
+        """The wide table's columns, in order: ``tile``, ``label`` (int64),
+        then every feature column (float64) sorted by name, as the
+        reference's ``format_extraction`` names them."""
+        F = len(self.n_per_tile)
+        total = sum(self.n_per_tile)
+        if total == 0 or not self.instructions:
+            return {"tile": np.zeros(0, np.int64), "label": np.zeros(0, np.int64)}
+        tiles = np.repeat(np.arange(F), self.n_per_tile)
+        labels = np.concatenate([np.arange(1, n + 1) for n in self.n_per_tile]).astype(np.int64)
+        name_row = {n: i for i, n in enumerate(self.names)}
+        entry_feats: dict[int, list[str]] = {}
+        for n in self.names:
+            idx_str, feat = n.split("::", 1)
+            entry_feats.setdefault(int(idx_str), []).append(feat)
+        gathered = self.arr[:, tiles, labels - 1].astype(np.float64)
+        cols: dict = {}
+        for inst in self.instructions:
+            mode, entry_idx, metric = self.inst_lookup[inst]
+            branch = "/".join(str(x) for x in inst)
+            last = str(inst[-1])
+            if mode == "scalar":
+                cols[f"{branch}/{last}"] = gathered[name_row[f"{entry_idx}::{metric}"]]
+            else:
+                for feat in entry_feats[entry_idx]:
+                    cname = branch if feat == last else f"{branch}/{feat}"
+                    cols[cname] = gathered[name_row[f"{entry_idx}::{feat}"]]
+        out = {"tile": tiles.astype(np.int64), "label": labels}
+        for cname in sorted(cols):
+            out[cname] = cols[cname]
+        return out
+
+    def to_table(self):
+        """The wide pyarrow table of :meth:`columns` (pyarrow is imported
+        here only: the GPU hosts of the port need not have it)."""
+        import pyarrow as pa
+
+        cols = self.columns()
+        if not len(cols["tile"]):
+            return pa.Table.from_pydict({"tile": [], "label": []})
+        return pa.Table.from_pydict(cols)

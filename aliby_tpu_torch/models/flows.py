@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from aliby_tpu_torch.extract.reductions import binned_sum_cols
+from aliby_tpu_torch.ops.imageops import _sqrt
 from aliby_tpu_torch.ops.labels import relabel_dense
 from aliby_tpu_torch.ops.stencil import OFFSETS, diffuse_heat, shift, successor_prop
 
@@ -122,7 +123,7 @@ def masks_to_flows(labels: torch.Tensor, n_iter: int = 96, max_labels: int = 512
 
     gy = grad_axis(1, 0)
     gx = grad_axis(0, 1)
-    mag = torch.sqrt(gy * gy + gx * gx)
+    mag = _sqrt(gy * gy + gx * gx)
     den = torch.clamp_min(mag, 1e-20)
     zero = torch.zeros((), device=labels.device)
     gy = torch.where(fg, _div(gy, den), zero)
@@ -219,7 +220,7 @@ def follow_flows(flows: torch.Tensor, fg: torch.Tensor, n_iter: int = 2,
 
     if n_prop > 0:
         yi, xi = _iota(B, H, W, torch.int32, dev)
-        fmag = torch.sqrt(fy * fy + fx * fx)
+        fmag = _sqrt(fy * fy + fx * fx)
         zero = torch.zeros((), device=dev)
         finv = torch.where(fmag > 0.02, _div(torch.ones_like(fmag), torch.clamp_min(fmag, 1e-20)),
                            zero)

@@ -22,6 +22,16 @@ def _monotone_key(x: torch.Tensor) -> torch.Tensor:
     return torch.where(u >= _SIGN, (~u) & _MASK, u | _SIGN)
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root on every device, as the reference's
+    (XLA) and the card's are. PyTorch's CPU f32 ``sqrt`` is off by one ulp
+    on about 0.7% of inputs (sqrt(267) among them), so the CPU takes it in
+    float64 and rounds once (exact: 53 >= 2 * 24 + 2 bits)."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
 def _key_to_f32(k: torch.Tensor) -> torch.Tensor:
     u = torch.where(k >= _SIGN, k ^ _SIGN, (~k) & _MASK)
     u = torch.where(u >= _SIGN, u - (1 << 32), u)  # two's complement int32

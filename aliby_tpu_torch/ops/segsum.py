@@ -1,12 +1,13 @@
 """Batched per-bin reductions (counterpart of ``aliby_tpu/ops/pallas_segsum.py``).
 
-This slice ports :func:`binned_sum_cols_batched`; the min/max and
-table-lookup kernels of that module come with the feature bank.
+Three kernels of that module are ported: :func:`binned_sum_cols_batched`,
+:func:`binned_minmax_batched` and :func:`table_lookup_batched`
+(``segment_sum_matmul``, off the main path, is not).
 
-The wrapper runs its plain PyTorch version for CPU tensors and launches
-the CUDA kernel (``kernels/csrc/segsum.cu``) for CUDA tensors; there is no
-fallback between the two. ``binned_sum_cols_batched.launches`` counts
-kernel launches.
+Each wrapper runs its plain PyTorch version (``*_plain``) for CPU tensors
+and launches its CUDA kernel (``kernels/csrc/segsum.cu``) for CUDA tensors;
+there is no fallback between the two. ``<wrapper>.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -15,8 +16,11 @@ import torch
 
 from aliby_tpu_torch.kernels import _build
 
-MAX_COLS = 8  # segsum.cu kMaxK
-CHUNK = 4096  # pixels per block in the kernel's first pass
+MAX_COLS = 32  # segsum.cu kMaxK
+CHUNK = 4096  # pixels per block in the kernels' first pass
+LOOKUP_CHUNK = 8192  # pixels per block of the lookup kernel
+MINMAX_MAX_SLOTS = 4096  # n_bins * K: three int32 tables in 48 KB of shared memory
+LOOKUP_MAX_SLOTS = 12288  # L * K: one f32 table in 48 KB of shared memory
 
 
 def _prep(values: torch.Tensor, bins: torch.Tensor):
@@ -27,23 +31,46 @@ def _prep(values: torch.Tensor, bins: torch.Tensor):
         )
     if values.device != bins.device:
         raise ValueError("values and bins must share a device")
-    if bins.dtype.is_floating_point or bins.dtype == torch.bool:
-        raise TypeError(f"bins must be integers, got {bins.dtype}")
+    _check_int(bins)
     B = bins.shape[0]
     K = values.shape[-1]
     vals = values.reshape(B, -1, K).to(torch.float32)
     return vals, bins.reshape(B, -1), B, vals.shape[1], K
 
 
+def _check_int(bins: torch.Tensor) -> None:
+    if bins.dtype.is_floating_point or bins.dtype == torch.bool:
+        raise TypeError(f"bins must be integers, got {bins.dtype}")
+
+
+def _device_of(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _int32_bins(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
+    if flat.dtype != torch.int32:
+        # out-of-range bins (some beyond int32) become -1 before narrowing
+        flat = torch.where((flat >= 0) & (flat < n_bins), flat, -1).to(torch.int32)
+    return flat.contiguous()
+
+
+def _flat_index(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """(B, N) bins -> (B*N,) rows of a (B*n_bins + 1)-row table; bins
+    outside [0, n_bins) land on the spare last row."""
+    B = flat.shape[0]
+    flat = flat.to(torch.int64)
+    valid = (flat >= 0) & (flat < n_bins)
+    base = torch.arange(B, device=flat.device).unsqueeze(1) * n_bins
+    return torch.where(valid, flat + base, B * n_bins).reshape(-1)
+
+
 def binned_sum_cols_batched_plain(values: torch.Tensor, bins: torch.Tensor,
                                   n_bins: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`binned_sum_cols_batched`."""
     vals, flat, B, N, K = _prep(values, bins)
-    flat = flat.to(torch.int64)
-    valid = (flat >= 0) & (flat < n_bins)
-    base = torch.arange(B, device=flat.device).unsqueeze(1) * n_bins
-    # out-of-range bins land on one spare row past the end, then dropped
-    idx = torch.where(valid, flat + base, B * n_bins).reshape(-1)
+    idx = _flat_index(flat, n_bins)
     out = torch.zeros(B * n_bins + 1, K, dtype=torch.float32, device=vals.device)
     out.index_add_(0, idx, vals.reshape(-1, K))
     return out[:-1].reshape(B, n_bins, K)
@@ -52,22 +79,17 @@ def binned_sum_cols_batched_plain(values: torch.Tensor, bins: torch.Tensor,
 def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
                             n_bins: int) -> torch.Tensor:
     """Batched per-bin sums: (B, ..., K) values, (B, ...) int bins ->
-    (B, n_bins, K) f32. Bins outside [0, n_bins) add nothing. On CUDA the
-    sums are deterministic (fixed order, no atomics)."""
-    if values.device.type == "cpu":
+    (B, n_bins, K) f32, K <= 32 on CUDA. Bins outside [0, n_bins) add
+    nothing. On CUDA the sums are deterministic (fixed order, no atomics)."""
+    if _device_of(values) == "cpu":
         return binned_sum_cols_batched_plain(values, bins, n_bins)
-    if values.device.type != "cuda":
-        raise ValueError(f"unsupported device {values.device}")
     vals, flat, B, N, K = _prep(values, bins)
     if not 1 <= K <= MAX_COLS:
         raise ValueError(f"the kernel takes 1..{MAX_COLS} columns, got {K}")
     if n_bins < 1:
         raise ValueError(f"n_bins must be positive, got {n_bins}")
     vals = vals.contiguous()
-    if flat.dtype != torch.int32:
-        # out-of-range bins (some beyond int32) become -1 before narrowing
-        flat = torch.where((flat >= 0) & (flat < n_bins), flat, -1).to(torch.int32)
-    flat = flat.contiguous()
+    flat = _int32_bins(flat, n_bins)
     n_chunks = -(-N // CHUNK)
     partial = torch.empty(B * n_chunks * n_bins * K, dtype=torch.float32, device=vals.device)
     out = torch.empty(B, n_bins, K, dtype=torch.float32, device=vals.device)
@@ -83,3 +105,117 @@ def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
 
 
 binned_sum_cols_batched.launches = 0
+
+
+def binned_minmax_batched_plain(values: torch.Tensor, bins: torch.Tensor, n_bins: int):
+    """Plain PyTorch version of :func:`binned_minmax_batched`
+    (``scatter_reduce_`` amin/amax, NaN flags scattered beside them)."""
+    vals, flat, B, N, K = _prep(values, bins)
+    idx = _flat_index(flat, n_bins).unsqueeze(1).expand(-1, K)
+    v = vals.reshape(-1, K)
+    nan = torch.isnan(v)
+    inf = torch.full((), float("inf"), device=v.device)
+    rows = B * n_bins + 1
+    mn = torch.full((rows, K), float("inf"), device=v.device)
+    mn.scatter_reduce_(0, idx, torch.where(nan, inf, v), "amin")
+    mx = torch.full((rows, K), float("-inf"), device=v.device)
+    mx.scatter_reduce_(0, idx, torch.where(nan, -inf, v), "amax")
+    flag = torch.zeros((rows, K), dtype=torch.int32, device=v.device)
+    flag.scatter_reduce_(0, idx, nan.to(torch.int32), "amax")
+    qnan = torch.full((), float("nan"), device=v.device)
+    mn = torch.where(flag > 0, qnan, mn)[:-1].reshape(B, n_bins, K)
+    mx = torch.where(flag > 0, qnan, mx)[:-1].reshape(B, n_bins, K)
+    return mn, mx
+
+
+def binned_minmax_batched(values: torch.Tensor, bins: torch.Tensor, n_bins: int):
+    """Batched per-bin (min, max) of each value column: (B, ..., K) values,
+    (B, ...) int bins -> two (B, n_bins, K) f32. Empty bins hold
+    (+inf, -inf); bins outside [0, n_bins) are dropped; a NaN value makes
+    NaN in its own (bin, column) only. On CUDA ``n_bins * K`` is at most
+    4096 (the kernel's shared-memory table)."""
+    if _device_of(values) == "cpu":
+        return binned_minmax_batched_plain(values, bins, n_bins)
+    vals, flat, B, N, K = _prep(values, bins)
+    if n_bins < 1 or K < 1:
+        raise ValueError(f"n_bins and K must be positive, got {n_bins}, {K}")
+    if n_bins * K > MINMAX_MAX_SLOTS:
+        raise ValueError(
+            f"n_bins * K = {n_bins * K} exceeds the kernel's shared-memory table "
+            f"({MINMAX_MAX_SLOTS} slots)"
+        )
+    vals = vals.contiguous()
+    flat = _int32_bins(flat, n_bins)
+    keys = torch.empty(3, B, n_bins, K, dtype=torch.int32, device=vals.device)
+    lib = _build.load("segsum")
+    _build.check(
+        lib.binned_minmax(vals.data_ptr(), flat.data_ptr(), keys[0].data_ptr(),
+                          keys[1].data_ptr(), keys[2].data_ptr(), B, N, K, n_bins, CHUNK,
+                          _build.stream_of(vals)),
+        "binned_minmax_batched",
+    )
+    binned_minmax_batched.launches += 1
+    out = keys[:2].view(torch.float32)  # decoded in place by the kernel
+    return out[0], out[1]
+
+
+binned_minmax_batched.launches = 0
+
+
+def _prep_lookup(table: torch.Tensor, bins: torch.Tensor):
+    if table.dim() != 3 or bins.dim() < 1 or bins.shape[0] != table.shape[0]:
+        raise ValueError(
+            f"table (B, L, K) and bins (B, ...) disagree: "
+            f"{tuple(table.shape)} vs {tuple(bins.shape)}"
+        )
+    if table.device != bins.device:
+        raise ValueError("table and bins must share a device")
+    _check_int(bins)
+    return table.to(torch.float32), bins.reshape(bins.shape[0], -1)
+
+
+def table_lookup_batched_plain(table: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`table_lookup_batched` (indexing)."""
+    tab, flat = _prep_lookup(table, bins)
+    B, L, K = tab.shape
+    flat = flat.to(torch.int64)
+    valid = (flat >= 0) & (flat < L)
+    tab = torch.where(torch.isfinite(tab), tab, torch.full((), float("nan"), device=tab.device))
+    got = torch.gather(tab, 1, flat.clamp(0, L - 1).unsqueeze(-1).expand(-1, -1, K))
+    out = torch.where(valid.unsqueeze(-1), got, torch.zeros((), device=tab.device))
+    return out.reshape(bins.shape + (K,))
+
+
+def table_lookup_batched(table: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """Batched small-table lookup: (B, L, K) table, (B, ...) int bins ->
+    (B, ..., K) f32 with ``out = table[bin]``. A bin outside [0, L) gives 0;
+    a non-finite entry gives NaN on exactly the pixels (and the column)
+    that read it, so +-inf becomes NaN as on the TPU kernel path. On CUDA
+    ``L * K`` is at most 12288 (the table staged in shared memory)."""
+    if _device_of(table) == "cpu":
+        return table_lookup_batched_plain(table, bins)
+    tab, flat = _prep_lookup(table, bins)
+    B, L, K = tab.shape
+    if L < 1 or K < 1:
+        raise ValueError(f"empty table {tuple(tab.shape)}")
+    if L * K > LOOKUP_MAX_SLOTS:
+        raise ValueError(
+            f"L * K = {L * K} exceeds the kernel's shared-memory table "
+            f"({LOOKUP_MAX_SLOTS} slots)"
+        )
+    tab = tab.contiguous()
+    flat = _int32_bins(flat, L)
+    N = flat.shape[1]
+    out = torch.empty(B, N, K, dtype=torch.float32, device=tab.device)
+    if N:
+        lib = _build.load("segsum")
+        _build.check(
+            lib.table_lookup(tab.data_ptr(), flat.data_ptr(), out.data_ptr(), B, N, L, K,
+                             LOOKUP_CHUNK, _build.stream_of(tab)),
+            "table_lookup_batched",
+        )
+        table_lookup_batched.launches += 1
+    return out.reshape(bins.shape + (K,))
+
+
+table_lookup_batched.launches = 0

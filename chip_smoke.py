@@ -8,19 +8,32 @@ Phases, in order; any failure exits non-zero:
 1. build: nvcc compiles every kernel source under
    ``aliby_tpu_torch/kernels/csrc`` (one process per source, in parallel).
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the slice's shapes and a ragged one (stencils bit-equal; per-bin sums
-   with exact counts, sums within rtol 1e-5, and bit-equal across runs).
-3. slice: eight 256x256 five-channel Cell Painting fields, objects
-   ``nuclei`` (channel 0, second channel 3) and ``cell`` (channel 3, second
-   channel 0) through ``dispatch_segmenter("cellpose")`` as one batch of 16
-   on one shared engine; then one 1080x1080 field. Every kernel must have
-   launched; two runs must give identical labels; an f32 run on the card
-   (TF32 off) must match an f32 run of the port on the CPU (equal object
-   counts, matched IoU >= 0.99).
-4. report: per-kernel times on the main path's own inputs (median of 21
+   the main path's shapes and a ragged one: stencils, per-bin min/max and
+   table lookup bit-equal (NaN positions equal); per-bin sums (K = 3 and
+   K = 17) with exact counts, sums within rtol 1e-5, bit-equal across runs.
+3. slice 1 (segmentation): eight 256x256 five-channel Cell Painting fields,
+   objects ``nuclei`` (channel 0, second channel 3) and ``cell`` (channel 3,
+   second channel 0) through ``dispatch_segmenter("cellpose")`` as one batch
+   of 16 on one shared engine; then one 1080x1080 field. Its three kernels
+   must have launched; two runs must give identical labels; an f32 run on
+   the card (TF32 off) must match an f32 run of the port on the CPU (equal
+   object counts, matched IoU >= 0.99).
+   slice 2 (the fused step): the example-01 pipeline
+   (``build_pipeline_steps`` -> ``try_compile`` -> ``.fused``) on the same
+   eight fields. All five kernels must have launched; labels must equal
+   slice 1's ``segment_grouped`` on the same pixels; labels and the feature
+   block must be identical across two runs; the column set must be the
+   golden example-01 anchor; the f32 feature block on the card must match
+   the port's on the CPU, which takes its sums in the kernel's order, at
+   the parity tests' tolerances (``aliby_tpu_torch.extract.tolerances``:
+   no value beyond them but in costes' threshold scan, at most 5% there);
+   the 1080x1080 field must take the sticky wide pass (cap 256, uint8 kept).
+4. report: per-kernel times on the fused path's own inputs (median of 21
    runs, CUDA events) beside the plain version, the bound and the library
-   call; the ``kernels`` JSON line; the card's name and power limit; and,
-   last, ``{"ok": true, "device": {...}}``.
+   call, each kernel's output held to the plain version's on those inputs
+   as in phase 2; the fused step's fields/s, stage breakdown, device idle share and
+   peak memory; the ``kernels`` JSON line; the card's name and power limit;
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
 result. Weights are the bundled checkpoint; inputs come from fixed seeds.
@@ -29,6 +42,7 @@ result. Weights are the bundled checkpoint; inputs come from fixed seeds.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -43,10 +57,27 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12  # H100 SXM, outside the tensor cores
 REPS = 21
+F32_EPS = 2.0 ** -23
+SLICE1_KERNELS = ("successor_prop", "diffuse_heat", "binned_sum_cols_batched")
+REPLACES = {
+    "successor_prop": "aliby_tpu/ops/pallas_stencil.py:115",
+    "diffuse_heat": "aliby_tpu/ops/pallas_stencil.py:182",
+    "binned_sum_cols_batched": "aliby_tpu/ops/pallas_segsum.py:234",
+    "binned_minmax_batched": "aliby_tpu/ops/pallas_segsum.py:251",
+    "table_lookup_batched": "aliby_tpu/ops/pallas_segsum.py:302",
+}
+EXAMPLE01 = dict(channels_to_segment={"nuclei": 0, "cell": 3},
+                 channels_to_extract=[0, 1, 2, 3, 4],
+                 features_to_extract=("intensity", "sizeshape"),
+                 cp_measure_feature_kwargs={"intensity": {"edge_measurements": False}})
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def sync():
+    torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps=REPS, warmup=2):
@@ -60,9 +91,37 @@ def cuda_ms(fn, reps=REPS, warmup=2):
         start.record()
         fn()
         end.record()
-        torch.cuda.synchronize()
+        sync()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps=5):
+    """Median host time of ``fn()`` ending in a synchronize, in ms."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def equal_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values and equal NaN positions."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want|; equal entries (the same inf, both NaN) count 0
+    and a NaN against a number counts inf."""
+    if isinstance(got, (tuple, list)):
+        return max(max_abs_err(g, w) for g, w in zip(got, want))
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+    d = torch.where(same, torch.zeros((), dtype=g.dtype, device=g.device), (g - w).abs())
+    return float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() else 0.0
 
 
 def matched_iou(a: np.ndarray, b: np.ndarray) -> float:
@@ -104,16 +163,18 @@ def tiled_labels(base: np.ndarray, B: int, H: int, W: int) -> np.ndarray:
 
 
 class Recorder:
-    """Wraps a module attribute to keep the first arguments it is called with."""
+    """Wraps a module attribute to keep the arguments of the first call
+    that ``want(*args)`` accepts (by default the first call)."""
 
-    def __init__(self, module, name):
+    def __init__(self, module, name, want=None):
         self.module, self.name = module, name
         self.fn = getattr(module, name)
+        self.want = want or (lambda *a: True)
         self.args = None
 
     def __call__(self, *args, **kwargs):
-        if self.args is None:
-            self.args = (args, kwargs)
+        if self.args is None and self.want(*args):
+            self.args = args
         return self.fn(*args, **kwargs)
 
     def __enter__(self):
@@ -124,65 +185,248 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def measure_kernels(recorders, launches) -> dict:
+def recording(recorders):
+    stack = contextlib.ExitStack()
+    for r in recorders:
+        stack.enter_context(r)
+    return stack
+
+
+def kernel_checks(rng, dev) -> None:
+    """Phase 2: every kernel against its plain version on the card."""
+    from aliby_tpu_torch.models import flows
+    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.test_data import render_cells
+
+    base = np.stack([render_cells(256, 24, rng)[2] for _ in range(4)])
+    shapes = [(16, 256, 256), (2, 1080, 1080), (2, 1088, 1088), (3, 200, 312)]
+    for B, H, W in shapes:
+        d, k = random_successors(rng, B, H, W)
+        dcode = torch.from_numpy(d).to(dev)
+        key = torch.from_numpy(k).to(dev)
+        for n_prop in (96, 17):
+            got = stencil.successor_prop(dcode, key, n_prop=n_prop)
+            want = stencil.successor_prop_plain(dcode, key, n_prop=n_prop)
+            sync()
+            if not torch.equal(got, want):
+                raise AssertionError(f"successor_prop != plain at {(B, H, W)}, n_prop {n_prop}")
+        labels = torch.from_numpy(tiled_labels(base, B, H, W)).to(dev)
+        src = flows.label_median_centers(labels, 512).to(torch.float32)
+        got = stencil.diffuse_heat(labels, src, 96)
+        want = stencil.diffuse_heat_plain(labels, src, 96)
+        sync()
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            raise AssertionError(f"diffuse_heat != plain at {(B, H, W)} (max abs {err})")
+        n_bins = 257
+        bins = torch.from_numpy(rng.integers(-2, n_bins + 3, (B, H * W)).astype(np.int32)).to(dev)
+        vals = torch.stack([
+            torch.from_numpy(rng.exponential(1.0, (B, H * W)).astype(np.float32)).to(dev),
+            torch.ones(B, H * W, device=dev),
+            torch.from_numpy((rng.random((B, H * W)) < 1e-3).astype(np.float32)).to(dev),
+        ], dim=-1)
+        got = segsum.binned_sum_cols_batched(vals, bins, n_bins)
+        again = segsum.binned_sum_cols_batched(vals, bins, n_bins)
+        want = segsum.binned_sum_cols_batched_plain(vals, bins, n_bins)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"binned_sum_cols_batched differs between runs at {(B, H, W)}")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+        rel, ratio = check_sums(got, want, vals, bins, n_bins, f"{(B, H, W)}")
+        log(f"[kernels] {(B, H, W)}: successor_prop, diffuse_heat bit-equal; "
+            f"binned_sum_cols_batched counts exact, sums max rel err {rel:.3g}, "
+            f"max err / bound {ratio:.3g}, deterministic")
+
+    # the slice-2 kernels and the widened sum, at the fused path's pixel counts
+    for B, N in ((16, 256 * 256), (2, 1080 * 1080), (3, 200 * 312)):
+        minmax_cases = ([(2, 65), (2, 257)] if B == 16 else [(2, 257)] if B == 2 else [(1, 257)])
+        for K, n_bins in minmax_cases:
+            vals = rng.normal(0, 50, (B, N, K)).astype(np.float32)
+            vals[rng.random((B, N, K)) < 1e-5] = np.nan
+            vals[0, 0, 0] = np.nan
+            bins = rng.integers(-2, n_bins + 2, (B, N)).astype(np.int32)
+            bins[0, 0] = 1
+            v, b = torch.from_numpy(vals).to(dev), torch.from_numpy(bins).to(dev)
+            mn, mx = segsum.binned_minmax_batched(v, b, n_bins)
+            pmn, pmx = segsum.binned_minmax_batched_plain(v, b, n_bins)
+            sync()
+            if not (equal_nan(mn, pmn) and equal_nan(mx, pmx)) or not torch.isnan(mn).any():
+                raise AssertionError(f"binned_minmax_batched != plain at {(B, N, K)}, {n_bins} bins")
+        for L in (64, 256):
+            table = rng.normal(0, 10, (B, L, 3)).astype(np.float32)
+            table[0, 1, 0], table[-1, 2, 2], table[0, 3, 1] = np.inf, -np.inf, np.nan
+            bins = rng.integers(-3, L + 3, (B, N)).astype(np.int32)
+            bins[0, :3] = (1, 2, 3)
+            t, b = torch.from_numpy(table).to(dev), torch.from_numpy(bins).to(dev)
+            got = segsum.table_lookup_batched(t, b)
+            want = segsum.table_lookup_batched_plain(t, b)
+            sync()
+            if not equal_nan(got, want) or not torch.isnan(got).any():
+                raise AssertionError(f"table_lookup_batched != plain at {(B, N)}, L {L}")
+        n_bins = 65 if B == 16 else 257
+        vals = rng.normal(0, 1, (B, N, 17)).astype(np.float32)
+        vals[..., 16] = 1.0
+        bins = rng.integers(-2, n_bins + 2, (B, N)).astype(np.int32)
+        v, b = torch.from_numpy(vals).to(dev), torch.from_numpy(bins).to(dev)
+        got = segsum.binned_sum_cols_batched(v, b, n_bins)
+        again = segsum.binned_sum_cols_batched(v, b, n_bins)
+        want = segsum.binned_sum_cols_batched_plain(v, b, n_bins)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"binned_sum_cols_batched K=17 differs between runs at {(B, N)}")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+        rel, ratio = check_sums(got, want, v, b, n_bins, f"K=17 at {(B, N)}")
+        log(f"[kernels] {(B, N)} px: binned_minmax_batched {minmax_cases} and "
+            f"table_lookup_batched (L 64, 256; K 3) equal to plain with NaN positions equal; "
+            f"binned_sum_cols_batched K=17 counts exact, max rel err {rel:.3g}, max err / bound "
+            f"{ratio:.3g}, deterministic")
+
+
+def check_sums(got, want, values, bins, n_bins, what: str) -> float:
+    """Per-bin sums of the kernel against the plain version's on the same
+    inputs: the counts (the input columns that hold only 0 and 1) exact;
+    every sum of n terms t within 2 (n - 1) eps sum|t| of the plain one, the
+    worst-case bound on two f32 summations of the same terms in different
+    orders (n - 1 roundings each; the plain version adds with atomics).
+    Returns the largest relative error |got - want| / |want| over the
+    nonzero sums and the largest |got - want| / bound."""
+    from aliby_tpu_torch.ops import segsum
+
+    K = values.shape[-1]
+    v = values.reshape(-1, K)
+    counts = ((v == 0) | (v == 1)).all(dim=0)
+    if not torch.equal(got[..., counts], want[..., counts]):
+        raise AssertionError(f"binned_sum_cols_batched counts != plain ({what})")
+    magnitude = segsum.binned_sum_cols_batched_plain(values.abs(), bins, n_bins)
+    n = segsum.binned_sum_cols_batched_plain(torch.ones_like(values[..., :1]), bins, n_bins)
+    bound = 2 * (n - 1).clamp_min(0) * F32_EPS * magnitude
+    bad = (got - want).abs() > bound
+    if bad.any():
+        raise AssertionError(f"binned_sum_cols_batched beyond the summation bound of plain "
+                             f"({what}): {int(bad.sum())} sums")
+    d = (got - want).abs()
+    nz, off = want != 0, d > 0
+    rel = float((d[nz] / want.abs()[nz]).max()) if nz.any() else 0.0
+    return rel, float((d[off] / bound[off]).max()) if off.any() else 0.0
+
+
+def agree(got, want) -> bool:
+    """Bit-equal, NaN positions equal (tuples element by element)."""
+    if isinstance(got, (tuple, list)):
+        return all(agree(g, w) for g, w in zip(got, want))
+    return equal_nan(got, want)
+
+
+def kernel_row(name, kernel, plain, library, bytes_, ops, shape, launches,
+               sum_inputs=None) -> dict:
+    """One kernel's line of the report: its time beside its plain version's,
+    the library call's (where one exists) and its bound. The kernel's
+    output must equal the plain version's on these inputs (per-bin sums,
+    ``sum_inputs`` = (values, bins, n_bins): within ``check_sums``' bound)."""
+    out_k, out_p = kernel(), plain()
+    sync()
+    err = max_abs_err(out_k, out_p)
+    extra = {}
+    if sum_inputs is not None:
+        extra["max_rel_err"], extra["max_err_over_bound"] = check_sums(
+            out_k, out_p, *sum_inputs, f"{name} {tuple(shape)}")
+    elif not agree(out_k, out_p):
+        raise AssertionError(f"{name} != plain on the main path's inputs {tuple(shape)}")
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    source = "aliby_tpu_torch/kernels/csrc/" + (
+        "stencil.cu" if name in ("successor_prop", "diffuse_heat") else "segsum.cu")
+    r = {
+        "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
+        "launches": launches, "max_abs_err": err, **extra, "ms": cuda_ms(kernel),
+        "plain_ms": cuda_ms(plain),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": cuda_ms(library) if library is not None else None, "shape": list(shape),
+    }
+    rel = (f", max rel err {extra['max_rel_err']:.3g}, max err / bound "
+           f"{extra['max_err_over_bound']:.3g}" if extra else "")
+    log(f"[report] {name} {tuple(shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+        f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"max abs err {err}{rel}, launches on the path {launches}")
+    return r
+
+
+def binned_sum_row(vals, bins, n_bins, launches) -> dict:
+    from aliby_tpu_torch.ops import segsum
+
+    Bv, K = bins.shape[0], vals.shape[-1]
+    N = bins[0].numel()
+    idx = segsum._flat_index(bins.reshape(Bv, -1), n_bins)
+    flat_vals = vals.reshape(-1, K).to(torch.float32)
+    acc = torch.zeros(Bv * n_bins + 1, K, device=vals.device)  # index_add returns a new tensor
+    return kernel_row("binned_sum_cols_batched",
+                      lambda: segsum.binned_sum_cols_batched(vals, bins, n_bins),
+                      lambda: segsum.binned_sum_cols_batched_plain(vals, bins, n_bins),
+                      lambda: acc.index_add(0, idx, flat_vals),
+                      bytes_=Bv * N * (4 * K + bins.element_size()) + Bv * n_bins * K * 4,
+                      ops=Bv * N * K, shape=(Bv, N, K, n_bins), launches=launches,
+                      sum_inputs=(vals, bins, n_bins))
+
+
+def measure_kernels(recorded: dict, launches: dict) -> dict:
     """Time each kernel on the inputs the main path gave it (recorded), beside
     its plain version, the library call where one exists, and its bound."""
     from aliby_tpu_torch.ops import segsum, stencil
 
-    d, k = recorders[0].args[0][:2]
-    lab, src = recorders[1].args[0][:2]
-    vals, bins, n_bins = recorders[2].args[0]
-    dev = d.device
     out = {}
 
-    def measure(name, kernel, plain, library, bytes_, ops, replaces, source, shape):
-        out_k, out_p = kernel(), plain()
-        torch.cuda.synchronize()
-        err = (out_k.to(torch.float64) - out_p.to(torch.float64)).abs().max().item()
-        t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
-        r = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": cuda_ms(kernel),
-            "plain_ms": cuda_ms(plain),
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": cuda_ms(library) if library is not None else None, "shape": list(shape),
-        }
-        out[name] = r
-        log(f"[report] {name} {tuple(shape)}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"max abs err {err}, launches on the path {launches[name]}")
+    def measure(name, *args, **kwargs):
+        out[name] = kernel_row(name, *args, **kwargs, launches=launches[name])
 
-    B, H, W = d.shape
-    px = B * H * W
-    before = stencil.successor_prop.launches
-    stencil.successor_prop(d, k)
-    n_launch = stencil.successor_prop.launches - before
-    rounds = 96 % 6 + 6 * (n_launch - (1 if 96 % 6 else 0))
-    log(f"[report] successor_prop runs {rounds} rounds of 96 ({n_launch} launches) on {(B, H, W)}")
-    measure("successor_prop", lambda: stencil.successor_prop(d, k),
-            lambda: stencil.successor_prop_plain(d, k), None,
-            bytes_=12 * px, ops=rounds * px,
-            replaces="aliby_tpu/ops/pallas_stencil.py:115",
-            source="aliby_tpu_torch/kernels/csrc/stencil.cu", shape=(B, H, W))
-    B, H, W = lab.shape
-    px = B * H * W
-    measure("diffuse_heat", lambda: stencil.diffuse_heat(lab, src, 96),
-            lambda: stencil.diffuse_heat_plain(lab, src, 96), None,
-            bytes_=12 * px, ops=18 * 96 * px,
-            replaces="aliby_tpu/ops/pallas_stencil.py:182",
-            source="aliby_tpu_torch/kernels/csrc/stencil.cu", shape=(B, H, W))
-    Bv, N, K = vals.shape
-    flat = bins.reshape(Bv, -1).to(torch.int64)
-    idx = torch.where((flat >= 0) & (flat < n_bins),
-                      flat + torch.arange(Bv, device=dev)[:, None] * n_bins, Bv * n_bins).reshape(-1)
-    flat_vals = vals.reshape(-1, K)
-    acc = torch.zeros(Bv * n_bins + 1, K, device=dev)  # index_add returns a new tensor
-    measure("binned_sum_cols_batched", lambda: segsum.binned_sum_cols_batched(vals, bins, n_bins),
-            lambda: segsum.binned_sum_cols_batched_plain(vals, bins, n_bins),
-            lambda: acc.index_add(0, idx, flat_vals),
-            bytes_=Bv * N * (4 * K + bins.element_size()) + Bv * n_bins * K * 4, ops=Bv * N * K,
-            replaces="aliby_tpu/ops/pallas_segsum.py:234",
-            source="aliby_tpu_torch/kernels/csrc/segsum.cu", shape=(Bv, N, K))
+    if "successor_prop" in recorded:
+        d, k = recorded["successor_prop"][:2]
+        B, H, W = d.shape
+        px = B * H * W
+        before = stencil.successor_prop.launches
+        stencil.successor_prop(d, k)
+        n_launch = stencil.successor_prop.launches - before
+        rounds = 96 % 6 + 6 * (n_launch - (1 if 96 % 6 else 0))
+        log(f"[report] successor_prop runs {rounds} rounds of 96 ({n_launch} launches) on {(B, H, W)}")
+        measure("successor_prop", lambda: stencil.successor_prop(d, k),
+                lambda: stencil.successor_prop_plain(d, k), None,
+                bytes_=12 * px, ops=rounds * px, shape=(B, H, W))
+    if "diffuse_heat" in recorded:
+        lab, src = recorded["diffuse_heat"][:2]
+        B, H, W = lab.shape
+        px = B * H * W
+        measure("diffuse_heat", lambda: stencil.diffuse_heat(lab, src, 96),
+                lambda: stencil.diffuse_heat_plain(lab, src, 96), None,
+                bytes_=12 * px, ops=18 * 96 * px, shape=(B, H, W))
+    if "binned_sum_cols_batched" in recorded:
+        out["binned_sum_cols_batched"] = binned_sum_row(*recorded["binned_sum_cols_batched"],
+                                                        launches["binned_sum_cols_batched"])
+    if "binned_minmax_batched" in recorded:
+        vals, bins, n_bins = recorded["binned_minmax_batched"]
+        Bv, K = bins.shape[0], vals.shape[-1]
+        N = bins[0].numel()
+        idx = segsum._flat_index(bins.reshape(Bv, -1), n_bins).unsqueeze(1).expand(-1, K)
+        flat_vals = vals.reshape(-1, K).to(torch.float32)
+        mn0 = torch.full((Bv * n_bins + 1, K), float("inf"), device=vals.device)
+        mx0 = torch.full((Bv * n_bins + 1, K), float("-inf"), device=vals.device)
+        measure("binned_minmax_batched",
+                lambda: segsum.binned_minmax_batched(vals, bins, n_bins),
+                lambda: segsum.binned_minmax_batched_plain(vals, bins, n_bins),
+                lambda: (mn0.scatter_reduce(0, idx, flat_vals, "amin"),
+                         mx0.scatter_reduce(0, idx, flat_vals, "amax")),
+                bytes_=Bv * N * (4 * K + 4) + 2 * Bv * n_bins * K * 4, ops=2 * Bv * N * K,
+                shape=(Bv, N, K, n_bins))
+    if "table_lookup_batched" in recorded:
+        table, bins = recorded["table_lookup_batched"]
+        Bt, L, K = table.shape
+        N = bins[0].numel()
+        flat_tab = table.reshape(Bt * L, K)
+        fidx = (bins.reshape(Bt, -1).clamp(0, L - 1).to(torch.int64)
+                + torch.arange(Bt, device=bins.device)[:, None] * L).reshape(-1)
+        measure("table_lookup_batched",
+                lambda: segsum.table_lookup_batched(table, bins),
+                lambda: segsum.table_lookup_batched_plain(table, bins),
+                lambda: flat_tab[fidx],
+                bytes_=Bt * N * 4 + Bt * N * K * 4 + Bt * L * K * 4, ops=0,
+                shape=(Bt, N, L, K))
     return out
 
 
@@ -198,10 +442,10 @@ def stage_breakdown(engine, images: np.ndarray, reps: int = 5) -> None:
     times: dict[str, list] = {}
 
     def stage(name, fn):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         return out
 
@@ -230,32 +474,296 @@ def stage_breakdown(engine, images: np.ndarray, reps: int = 5) -> None:
         f"{k} {v:.2f} ms ({100 * v / total:.0f}%)" for k, v in med.items()))
 
 
-def device_share(fn) -> None:
+def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
+    """Host time of each stage of the fused step, every stage serialised
+    with synchronize() (median of ``reps``): segmentation (both objects, one
+    batch), the sizeshape, intensity and colocalisation families (the MAD
+    bisection of intensity shown apart), and the rest (z-reductions, label
+    packing, the readback)."""
+    from aliby_tpu_torch.extract import features
+
+    times: dict[str, float] = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            times[name] = times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    saved = {n: getattr(features, n) for n in ("sizeshape", "intensity", "mad_from_sorted")}
+    saved_corr = dict(features.CORRELATION_FEATURES)
+    for e in engines:
+        e._segment_all = timed("segmentation", e._segment_all)
+    features.sizeshape = timed("sizeshape", saved["sizeshape"])
+    features.intensity = timed("intensity", saved["intensity"])
+    features.mad_from_sorted = timed("intensity MAD", saved["mad_from_sorted"])
+    for name, fn in saved_corr.items():
+        features.CORRELATION_FEATURES[name] = timed("coloc", fn)
+    runs = []
+    try:
+        for _ in range(reps):
+            times.clear()
+            t0 = time.perf_counter()
+            step.fused(pixels)
+            sync()
+            total = (time.perf_counter() - t0) * 1e3
+            parts = dict(times)
+            parts["packing and the rest"] = total - sum(
+                v for k, v in parts.items() if k != "intensity MAD")
+            parts["total"] = total
+            runs.append(parts)
+    finally:
+        for e in engines:
+            del e._segment_all
+        for n, fn in saved.items():
+            setattr(features, n, fn)
+        features.CORRELATION_FEATURES.update(saved_corr)
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    total = med.pop("total")
+    log(f"[stages] fused step {tuple(pixels.shape)}: total {total:.2f} ms; " + ", ".join(
+        f"{k} {v:.2f} ms ({100 * v / total:.0f}%)" for k, v in med.items()))
+
+
+def device_share(fn, what="one batch") -> None:
     """Device-busy share of one run of ``fn`` and its top kernels, from
     torch.profiler (CUDA kernel self time over wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
+    sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (the aten ops' rows repeat their kernels' time)
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log("[profile] device time: not measured (the profiler saw no CUDA kernels)")
+        log(f"[profile] {what}: device time not measured (the profiler saw no CUDA kernels)")
         return
     n_kernels = sum(e.count for e in events)
-    log(f"[profile] one batch: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}%, "
         f"{n_kernels} kernels")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms in {e.count} calls")
+
+
+def peak_gb(fn) -> float:
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync()
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def kernel_order_sums(values, bins, n_bins, plain):
+    """The per-bin sums of ``binned_sum_cols_batched`` on the CPU, taken in
+    its CUDA kernel's order: each 4096-pixel chunk in pixel order (``plain``,
+    the plain version), then the chunk sums in chunk order (``segsum.cu``)."""
+    from aliby_tpu_torch.ops import segsum
+
+    vals, flat, B, N, K = segsum._prep(values, bins)
+    out = torch.zeros(B, n_bins, K)
+    for c0 in range(0, N, segsum.CHUNK):
+        sl = slice(c0, c0 + segsum.CHUNK)
+        out = out + plain(vals[:, sl], flat[:, sl], n_bins)
+    return out
+
+
+def compare_features(gpu_feats, cpu_feats, fields, what: str) -> None:
+    """The card's feature blocks against the CPU's on the fields whose
+    labels are equal, at the tolerances of ``aliby_tpu_torch.extract.tolerances``
+    (those of the CPU parity tests): no value beyond them outside the
+    threshold-decided features, and at most ``THRESHOLD_SHARE`` of those."""
+    from aliby_tpu_torch.extract.tolerances import (
+        THRESHOLD_DECIDED,
+        THRESHOLD_SHARE,
+        beyond_tolerance,
+        tolerance,
+    )
+
+    worst: dict[str, float] = {}
+    off: dict[str, int] = {}  # feature -> object values beyond tolerance
+    flips, n_thr, n_equal, n_all = 0, 0, 0, 0
+    for obj_g, obj_c in zip(gpu_feats, cpu_feats):
+        for (names, g_arr), (c_names, c_arr) in zip(obj_g, obj_c):
+            if names != c_names or g_arr.shape != c_arr.shape:
+                raise AssertionError("GPU/CPU feature names or shapes differ")
+            g_arr = g_arr[:, fields].astype(np.float64)
+            c_arr = c_arr[:, fields].astype(np.float64)
+            n_equal += int(np.array_equal(g_arr, c_arr, equal_nan=True))
+            n_all += 1
+            row = {name: i for i, name in enumerate(names)}
+            for i, name in enumerate(names):
+                entry, feat = name.split("::", 1)
+
+                def ref(other, entry=entry):
+                    return c_arr[row[f"{entry}::{other}"]]
+
+                g, c = g_arr[i], c_arr[i]
+                beyond = beyond_tolerance(feat, g, c, ref)
+                if feat in THRESHOLD_DECIDED:
+                    n_thr += int((~np.isnan(g) | ~np.isnan(c)).sum())
+                    flips += int(beyond.sum())
+                    continue
+                if beyond.any():
+                    off[feat] = off.get(feat, 0) + int(beyond.sum())
+                d = np.nan_to_num(np.abs(g - c))
+                if d.max() == 0:
+                    continue
+                rtol, atol = tolerance(feat, ref)
+                absc = np.nan_to_num(np.abs(c))
+                # in units of the tolerance (of f32 ulps for exact features)
+                tol = np.maximum(atol + rtol * absc, F32_EPS * absc + 1e-30)
+                worst[feat] = max(worst.get(feat, 0.0), float((d / tol).max()))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[fused] f32 GPU vs CPU ({what}): {n_equal}/{n_all} feature blocks bit-equal; "
+        f"largest error / tolerance: " + (", ".join(f"{k} {v:.3g}" for k, v in top) or "none"))
+    log(f"[fused] f32 GPU vs CPU ({what}): costes/costes_2 differ on {flips} of {n_thr} object "
+        f"values (at most {THRESHOLD_SHARE:.0%}); values beyond tolerance elsewhere: {off or 'none'}")
+    if flips > max(1, THRESHOLD_SHARE * n_thr):
+        raise AssertionError(f"costes differs GPU/CPU on {flips} of {n_thr} values "
+                             f"(> {THRESHOLD_SHARE:.0%})")
+    if off:
+        raise AssertionError(f"GPU/CPU feature values beyond tolerance: {off}")
+
+
+def fused_checks(pixels, slice1_labels):
+    """Phase 3, slice 2: the example-01 pipeline through the fused step."""
+    from aliby_tpu_torch.engine.builders import build_pipeline_steps
+    from aliby_tpu_torch.engine.compiled import try_compile
+    from aliby_tpu_torch.engine.fused import results_from_fused
+    from aliby_tpu_torch.extract import features, reductions
+    from aliby_tpu_torch.models import flows
+    from aliby_tpu_torch.models.segment import dispatch_segmenter
+    from aliby_tpu_torch.ops import segsum, stencil
+
+    wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
+                "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+                "binned_minmax_batched": segsum.binned_minmax_batched,
+                "table_lookup_batched": segsum.table_lookup_batched}
+    step = try_compile(build_pipeline_steps(**EXAMPLE01))
+    if step is None:
+        raise AssertionError("try_compile found the example-01 pipeline ineligible")
+    t0 = time.perf_counter()
+    step.fused(pixels)  # warm-up
+    t_first = time.perf_counter() - t0
+
+    recorders = {
+        "successor_prop": Recorder(flows, "successor_prop"),
+        "diffuse_heat": Recorder(flows, "diffuse_heat"),
+        # sizeshape's moment pass: 16 columns + the non-finite indicator
+        "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched",
+                                            lambda v, *a: v.shape[-1] == 17),
+        "binned_minmax_batched": Recorder(reductions, "binned_minmax_batched"),
+        "table_lookup_batched": Recorder(reductions, "table_lookup_batched",
+                                         lambda t, *a: t.shape[-1] == 3),
+        "costes histogram": Recorder(features, "binned_sum_cols_batched"),
+    }
+    for w in wrappers.values():
+        w.launches = 0
+    with recording(recorders.values()):
+        t0 = time.perf_counter()
+        run1 = step.fused(pixels)
+        t_run1 = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"[fused] example-01 step, 8 fields x 2 objects: first call {t_first * 1e3:.1f} ms, "
+        f"counted run {t_run1 * 1e3:.1f} ms; launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the fused path")
+    run2 = step.fused(pixels)
+    for a, b in zip(run1["labels"], run2["labels"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("fused labels differ between runs")
+    for obj1, obj2 in zip(run1["features"], run2["features"]):
+        for (n1, a1), (n2, a2) in zip(obj1, obj2):
+            if n1 != n2 or not np.array_equal(a1, a2, equal_nan=True):
+                raise AssertionError("fused feature blocks differ between runs")
+    for oi, (fused, seg) in enumerate(zip(run1["labels"], slice1_labels)):
+        if fused.shape != (8, 256, 256) or not np.array_equal(fused, np.stack(seg)):
+            raise AssertionError(f"fused labels != segment_grouped labels (object {oi})")
+    shapes = [[a.shape for _, a in o] for o in run1["features"]]
+    if shapes != [[(158, 8, 64), (80, 8, 64)]] * 2 or step.fused.state != {"cap": 64, "u8": True}:
+        raise AssertionError(f"fused feature shapes {shapes}, state {step.fused.state}")
+    columns = set()
+    for ti, (names, arr) in enumerate(run1["features"][0]):
+        res = results_from_fused(step.fused.plans[0][ti], names, arr, run1["labels"][0])
+        columns |= set(res.columns()) - {"tile", "label"}
+    with open(os.path.join(ROOT, "tests", "golden", "example01_columns.txt")) as f:
+        golden = {c for c in f.read().splitlines() if c and not c.startswith("metadata_")}
+    if columns != golden:
+        raise AssertionError(f"column set != golden anchor: {len(columns)} vs {len(golden)}, "
+                             f"missing {sorted(golden - columns)[:5]}, extra {sorted(columns - golden)[:5]}")
+    log(f"[fused] labels equal to segment_grouped's; labels and feature block identical across "
+        f"runs; {len(columns)} columns = the golden example-01 anchor minus its 4 metadata columns; "
+        f"feature blocks {shapes[0]} per object, state {step.fused.state}")
+
+    ms = host_ms(lambda: step.fused(pixels))
+    log(f"[fused] steady state: {ms:.1f} ms per step = {8e3 / ms:.2f} fields/s (8 fields x 2 objects)")
+    # try_compile's segmenters share the engine cache with dispatch_segmenter
+    fused_stage_breakdown(step, pixels, [dispatch_segmenter("cellpose", 0).engine])
+    device_share(lambda: step.fused(pixels), "one fused step")
+    log(f"[fused] peak device memory of one step: {peak_gb(lambda: step.fused(pixels)):.3f} GB")
+    recorded = {k: r.args for k, r in recorders.items()}
+    return step, recorded, launches, {"fields_per_s": 8e3 / ms, "step_ms": ms,
+                                      "first_ms": t_first * 1e3}
+
+
+def fused_wide_pass(step, big) -> dict:
+    """The 1080x1080 field overflows the cap of 64: the sticky wide pass."""
+    t0 = time.perf_counter()
+    gb = peak_gb(lambda: step.fused(big))
+    t_big = time.perf_counter() - t0
+    out = step.fused(big)
+    shapes = [[a.shape for _, a in o] for o in out["features"]]
+    lmax = [int(m.max()) for m in out["labels"]]
+    if (step.fused.state != {"cap": 256, "u8": True} or shapes != [[(158, 1, 256), (80, 1, 256)]] * 2
+            or not 64 < max(lmax) <= 255):
+        raise AssertionError(f"1080x1080 wide pass: state {step.fused.state}, shapes {shapes}, "
+                             f"objects {lmax}")
+    ms = host_ms(lambda: step.fused(big), reps=3)
+    log(f"[fused] 1080x1080 field: objects {lmax}, state {step.fused.state} (wide pass, uint8 "
+        f"kept), first call {t_big * 1e3:.1f} ms, steady {ms:.1f} ms, peak memory {gb:.3f} GB")
+    return {"field_1080_ms": ms, "field_1080_peak_gb": gb}
+
+
+def fused_gpu_vs_cpu(pixels) -> None:
+    """The f32 fused step on the card (TF32 off) against the port on the CPU.
+
+    The CPU takes its per-bin sums in the card's order (``kernel_order_sums``),
+    so that what is compared is the rest of the arithmetic; phase 2 holds
+    the sums themselves to the plain version's order (rtol 1e-5)."""
+    from aliby_tpu_torch.engine.builders import build_pipeline_steps
+    from aliby_tpu_torch.engine.compiled import try_compile
+    from aliby_tpu_torch.ops import segsum
+
+    pipeline = build_pipeline_steps(
+        **EXAMPLE01, segmenter_extra_kwargs={"model_kwargs": {"dtype": torch.float32}})
+    gpu = try_compile(pipeline).fused(pixels)
+    plain = segsum.binned_sum_cols_batched_plain
+    segsum.binned_sum_cols_batched_plain = functools.partial(kernel_order_sums, plain=plain)
+    try:
+        t0 = time.perf_counter()
+        cpu = try_compile(pipeline, device="cpu").fused(pixels)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        segsum.binned_sum_cols_batched_plain = plain
+    fields = [f for f in range(pixels.shape[0]) if all(
+        np.array_equal(g[f], c[f]) for g, c in zip(gpu["labels"], cpu["labels"]))]
+    log(f"[fused] f32 GPU vs CPU (CPU step {t_cpu:.1f} s, sums in the kernel's order): labels "
+        f"bit-equal on {len(fields)}/{pixels.shape[0]} fields; features compared there")
+    if len(fields) < pixels.shape[0] // 2:
+        raise AssertionError("f32 GPU/CPU labels differ on more than half the fields")
+    compare_features(gpu["features"], cpu["features"], fields, "sums in the kernel's order")
 
 
 def main() -> int:
@@ -268,11 +776,7 @@ def main() -> int:
     from aliby_tpu_torch.models import flows
     from aliby_tpu_torch.models.segment import dispatch_segmenter, segment_grouped
     from aliby_tpu_torch.ops import segsum, stencil
-    from aliby_tpu_torch.test_data import (
-        cellpainting_fields,
-        cellpainting_large_field,
-        render_cells,
-    )
+    from aliby_tpu_torch.test_data import cellpainting_fields, cellpainting_large_field
 
     dev = torch.device("cuda")
     log("torch", torch.__version__, "cuda", torch.version.cuda, "device",
@@ -293,66 +797,25 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     # -------------------------------------------------------------- 2 kernels
-    rng = np.random.default_rng(0)
-    base = np.stack([render_cells(256, 24, rng)[2] for _ in range(4)])
-    shapes = [(16, 256, 256), (2, 1080, 1080), (2, 1088, 1088), (3, 200, 312)]
-    for B, H, W in shapes:
-        d, k = random_successors(rng, B, H, W)
-        dcode = torch.from_numpy(d).to(dev)
-        key = torch.from_numpy(k).to(dev)
-        for n_prop in (96, 17):
-            got = stencil.successor_prop(dcode, key, n_prop=n_prop)
-            want = stencil.successor_prop_plain(dcode, key, n_prop=n_prop)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"successor_prop != plain at {(B, H, W)}, n_prop {n_prop}")
-        labels = torch.from_numpy(tiled_labels(base, B, H, W)).to(dev)
-        src = flows.label_median_centers(labels, 512).to(torch.float32)
-        got = stencil.diffuse_heat(labels, src, 96)
-        want = stencil.diffuse_heat_plain(labels, src, 96)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            err = (got - want).abs().max().item()
-            raise AssertionError(f"diffuse_heat != plain at {(B, H, W)} (max abs {err})")
-        n_bins = 257
-        bins = torch.from_numpy(rng.integers(-2, n_bins + 3, (B, H * W)).astype(np.int32)).to(dev)
-        vals = torch.stack([
-            torch.from_numpy(rng.exponential(1.0, (B, H * W)).astype(np.float32)).to(dev),
-            torch.ones(B, H * W, device=dev),
-            torch.from_numpy((rng.random((B, H * W)) < 1e-3).astype(np.float32)).to(dev),
-        ], dim=-1)
-        got = segsum.binned_sum_cols_batched(vals, bins, n_bins)
-        again = segsum.binned_sum_cols_batched(vals, bins, n_bins)
-        want = segsum.binned_sum_cols_batched_plain(vals, bins, n_bins)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"binned_sum_cols_batched differs between runs at {(B, H, W)}")
-        if not torch.equal(got[..., 1:], want[..., 1:]):
-            raise AssertionError(f"binned_sum_cols_batched counts != plain at {(B, H, W)}")
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
-        log(f"[kernels] {(B, H, W)}: successor_prop, diffuse_heat bit-equal; "
-            f"binned_sum_cols_batched counts exact, sums max abs err "
-            f"{(got - want).abs().max().item():.3g}, deterministic")
+    kernel_checks(np.random.default_rng(0), dev)
 
-    # ---------------------------------------------------------------- 3 slice
+    # ------------------------------------------------------- 3 slice 1 (segmentation)
     pixels = np.concatenate(cellpainting_fields(8, 256, seed=7))  # (8, 5, 1, 256, 256)
     nuclei = dispatch_segmenter("cellpose", 0, second_channel=3)
     cell = dispatch_segmenter("cellpose", 3, second_channel=0)
     if nuclei.engine is not cell.engine:
         raise AssertionError("nuclei and cell must share one engine")
     segment_grouped([nuclei, cell], pixels)  # warm-up (cuDNN plans, kernel loads)
-    torch.cuda.synchronize()
+    sync()
 
     recorders = [Recorder(flows, "successor_prop"), Recorder(flows, "diffuse_heat"),
                  Recorder(reductions, "binned_sum_cols_batched")]
     for w in wrappers.values():
         w.launches = 0
-    with contextlib.ExitStack() as stack:
-        for r in recorders:
-            stack.enter_context(r)
+    with recording(recorders):
         t0 = time.perf_counter()
         run1 = segment_grouped([nuclei, cell], pixels)
-        torch.cuda.synchronize()
+        sync()
         t_run1 = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     log(f"[slice] 8 fields x 2 objects (one batch of 16): {t_run1 * 1e3:.1f} ms; "
@@ -364,7 +827,7 @@ def main() -> int:
     for _ in range(5):
         t0 = time.perf_counter()
         run2 = segment_grouped([nuclei, cell], pixels)
-        torch.cuda.synchronize()
+        sync()
         times.append(time.perf_counter() - t0)
     for obj, (a, b) in enumerate(zip(run1, run2)):
         for f, (x, y) in enumerate(zip(a, b)):
@@ -386,12 +849,10 @@ def main() -> int:
         w.launches = 0
     big_recorders = [Recorder(flows, "successor_prop"), Recorder(flows, "diffuse_heat"),
                      Recorder(reductions, "binned_sum_cols_batched")]
-    with contextlib.ExitStack() as stack:
-        for r in big_recorders:
-            stack.enter_context(r)
+    with recording(big_recorders):
         t0 = time.perf_counter()
         big_masks = segment_grouped([nuclei, cell], big)
-        torch.cuda.synchronize()
+        sync()
         t_big = time.perf_counter() - t0
     big_launches = {name: w.launches for name, w in wrappers.items()}
     for name, n in big_launches.items():
@@ -407,6 +868,14 @@ def main() -> int:
     stage_breakdown(nuclei.engine, np.concatenate([nuclei.images(pixels), cell.images(pixels)]))
     device_share(lambda: segment_grouped([nuclei, cell], pixels))
 
+    # ------------------------------------------------------- 3 slice 2 (the fused step)
+    # the example-01 pipeline segments without a second channel
+    plain_seg = segment_grouped([dispatch_segmenter("cellpose", 0),
+                                 dispatch_segmenter("cellpose", 3)], pixels)
+    step, fused_rec, fused_launches, fused_stats = fused_checks(pixels, plain_seg)
+    fused_stats.update(fused_wide_pass(step, big))
+
+    # -------------------------------------------------- 3 f32 on the card vs the CPU
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     log("[slice] f32 comparison: torch.backends.cudnn.allow_tf32 = False, "
@@ -430,18 +899,25 @@ def main() -> int:
                 raise AssertionError(f"GPU/CPU matched IoU {iou:.4f} < 0.99 (object {obj}, field {f})")
     log(f"[slice] f32 GPU vs CPU: object counts equal, worst matched IoU {worst:.6f}, "
         f"{n_equal}/16 label maps bit-equal")
+    fused_gpu_vs_cpu(pixels)
 
     # --------------------------------------------------------------- 4 report
-    main_path = measure_kernels(recorders, launches)
-    rows = [main_path[name] for name in wrappers]
+    log("[report] slice 1 (segmentation) kernels on its own inputs:")
+    measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, recorders)}, launches)
     log("[report] the same, on the 1080x1080 field's inputs:")
-    measure_kernels(big_recorders, big_launches)
+    measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, big_recorders)}, big_launches)
+    log("[report] the fused step's kernels on its own inputs (launches: one fused step):")
+    rows = measure_kernels(fused_rec, fused_launches)
+    log("[report] the costes histogram (binned_sum_cols_batched, 6 columns, "
+        "(cap + 1) * 257 bins):")
+    binned_sum_row(*fused_rec["costes histogram"], fused_launches["binned_sum_cols_batched"])
 
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
-                              "objects": counts, "field_1080_ms": t_big * 1e3}}))
+                              "objects": counts, "field_1080_ms": t_big * 1e3},
+                    "fused": fused_stats}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": [rows[name] for name in REPLACES]}), flush=True)
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

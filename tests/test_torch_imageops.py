@@ -79,3 +79,14 @@ def test_percentile_pair_bit_equal(q):
     finally:
         if flush:
             torch.set_flush_denormal(False)
+
+
+def test_sqrt_is_correctly_rounded():
+    """PyTorch's CPU f32 ``sqrt`` is off by one ulp on some inputs (sqrt(267)
+    among them); ``_sqrt`` rounds as XLA does (and the card)."""
+    x = np.arange(1, 20000, dtype=np.float32)
+    x = np.concatenate([x, np.random.default_rng(4).random(20000).astype(np.float32) * 3])
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(np.asarray(jnp.sqrt(x)), want)
+    np.testing.assert_array_equal(T._sqrt(torch.from_numpy(x)).numpy(), want)
+    assert torch.sqrt(torch.tensor([267.0])).item() != float(want[266])

@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``aliby_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax``, ``flax`` or any module of ``aliby_tpu``."""
+``chip_smoke.py`` imports ``jax``, ``flax`` or any module of ``aliby_tpu``;
+and none imports ``pyarrow`` when it is imported (the GPU hosts of the port
+need not have it: only ``FusedTreeResult.to_table`` imports it, inside)."""
 
 import ast
 from pathlib import Path
@@ -27,8 +29,29 @@ def test_files_found():
     assert len(FILES) >= 15
 
 
+def _import_time_nodes(nodes):
+    """The statements that run when the module is imported: everything but
+    the bodies of functions."""
+    for node in nodes:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        yield node
+        yield from _import_time_nodes(ast.iter_child_nodes(node))
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_flax_or_reference_imports(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_pyarrow(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in _import_time_nodes(tree.body):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            assert name.split(".")[0] != "pyarrow", (
+                f"{path.relative_to(ROOT)}:{node.lineno} imports {name} at import time")

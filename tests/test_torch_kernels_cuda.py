@@ -56,7 +56,7 @@ def test_diffuse_heat_kernel_bit_equal(dev, shape):
     assert torch.equal(got, stencil.diffuse_heat_plain(lab, src, 96))
 
 
-@pytest.mark.parametrize("n_bins,K", [(1, 1), (257, 3), (1500, 8)])
+@pytest.mark.parametrize("n_bins,K", [(1, 1), (257, 3), (1500, 8), (65, 17), (257, 32)])
 def test_binned_sum_kernel(dev, n_bins, K):
     rng = np.random.default_rng(2)
     vals = torch.from_numpy(rng.normal(size=(3, 50000, K)).astype(np.float32)).to(dev)
@@ -75,3 +75,71 @@ def test_binned_sum_non_finite_on_device(dev):
     bins = (torch.arange(100, device=dev) % 4).to(torch.int32)[None]
     out = binned_sum_cols(vals, bins, 4)
     assert torch.isnan(out[0, 3]).all() and torch.isfinite(out[0, :3]).all()
+
+
+def test_binned_sum_kernel_columns_ride_independently(dev):
+    """A column's sums are the same bits whatever columns ride beside it
+    (K <= 8 keeps the order it had; K = 17 takes the same order)."""
+    rng = np.random.default_rng(5)
+    vals = torch.from_numpy(rng.normal(size=(2, 70000, 17)).astype(np.float32)).to(dev)
+    bins = torch.from_numpy(rng.integers(0, 65, (2, 70000)).astype(np.int32)).to(dev)
+    wide = segsum.binned_sum_cols_batched(vals, bins, 65)
+    narrow = segsum.binned_sum_cols_batched(vals[..., :3].contiguous(), bins, 65)
+    assert torch.equal(wide[..., :3], narrow)
+
+
+def _minmax_inputs(rng, B, N, K, n_bins, dev):
+    vals = rng.normal(size=(B, N, K)).astype(np.float32)
+    vals[rng.random((B, N, K)) < 1e-4] = np.nan
+    vals[0, 0, 0] = np.nan
+    bins = rng.integers(-2, n_bins + 2, (B, N)).astype(np.int32)
+    bins[0, 0] = 0
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(bins).to(dev)
+
+
+def _equal_with_nan(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("B,N,K,n_bins", [(16, 65536, 2, 65), (4, 65536, 2, 257),
+                                          (3, 62400, 1, 257), (2, 1000, 4, 1000)])
+def test_binned_minmax_kernel(dev, B, N, K, n_bins):
+    vals, bins = _minmax_inputs(np.random.default_rng(6), B, N, K, n_bins, dev)
+    before = segsum.binned_minmax_batched.launches
+    mn, mx = segsum.binned_minmax_batched(vals, bins, n_bins)
+    assert segsum.binned_minmax_batched.launches == before + 1
+    pmn, pmx = segsum.binned_minmax_batched_plain(vals, bins, n_bins)
+    assert mn.shape == (B, n_bins, K) and torch.isnan(mn).any()
+    assert _equal_with_nan(mn, pmn) and _equal_with_nan(mx, pmx)
+
+
+def test_binned_minmax_empty_bins_and_budget(dev):
+    vals = torch.ones(1, 10, 1, device=dev)
+    bins = torch.zeros(1, 10, dtype=torch.int32, device=dev)
+    mn, mx = segsum.binned_minmax_batched(vals, bins, 3)
+    assert mn[0, 1:, 0].eq(float("inf")).all() and mx[0, 1:, 0].eq(float("-inf")).all()
+    with pytest.raises(ValueError):
+        segsum.binned_minmax_batched(torch.ones(1, 10, 2, device=dev), bins, 2049)
+
+
+@pytest.mark.parametrize("B,N,L,K", [(16, 65536, 64, 3), (3, 62400, 256, 3), (2, 5000, 257, 1)])
+def test_table_lookup_kernel(dev, B, N, L, K):
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=(B, L, K)).astype(np.float32)
+    table[0, 1, 0], table[-1, 2, K - 1], table[0, 3, 0] = np.inf, -np.inf, np.nan
+    bins = rng.integers(-3, L + 3, (B, N)).astype(np.int32)
+    t, b = torch.from_numpy(table).to(dev), torch.from_numpy(bins).to(dev)
+    got = segsum.table_lookup_batched(t, b)
+    want = segsum.table_lookup_batched_plain(t, b)
+    assert got.shape == (B, N, K) and torch.isnan(got).any()
+    assert _equal_with_nan(got, want)
+
+
+def test_sqrt_on_the_card_is_correctly_rounded(dev):
+    from aliby_tpu_torch.ops.imageops import _sqrt
+
+    x = np.concatenate([np.arange(1, 20000, dtype=np.float32),
+                        np.random.default_rng(4).random(20000).astype(np.float32) * 3])
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(_sqrt(torch.from_numpy(x).to(dev)).cpu().numpy(), want)

@@ -1,7 +1,14 @@
-"""Port parity: per-bin column sums (``aliby_tpu_torch.ops.segsum`` and
-``aliby_tpu_torch.extract.reductions.binned_sum_cols``).
+"""Port parity: the batched per-bin reductions of ``aliby_tpu_torch.ops.segsum``
+(sums, min/max, table lookup) and ``extract.reductions.binned_sum_cols``.
 
-Tolerance: counts exact; sums rtol 1e-5 (f32 sums taken in another order).
+Tolerance: sums: counts exact, rtol 1e-5 (f32 sums taken in another order);
+min/max and lookup: exact (equal values and equal NaN positions).
+
+Min/max: a NaN value makes NaN in its own (bin, column) only, as in the
+Pallas kernel and the JAX scatter. Lookup: a bin outside [0, L) gives 0 and
+a non-finite table entry gives NaN, as in the Pallas kernel; the JAX CPU
+gather (``reductions.table_lookup`` off the TPU) returns +-inf as it is. The
+port follows the kernel path on every device (pinned below).
 
 Bins outside [0, n_bins) add nothing, as in the Pallas kernel; the JAX
 package's CPU scatter wraps a negative bin to n_bins + bin instead (the
@@ -21,7 +28,9 @@ import pytest
 import torch
 
 from aliby_tpu.extract import reductions as R
+from aliby_tpu.ops.pallas_segsum import binned_minmax_batched as jax_binned_minmax
 from aliby_tpu.ops.pallas_segsum import binned_sum_cols_batched as jax_binned_sum
+from aliby_tpu.ops.pallas_segsum import table_lookup_batched as jax_table_lookup
 from aliby_tpu_torch.extract.reductions import binned_sum_cols
 from aliby_tpu_torch.ops import segsum
 
@@ -107,3 +116,96 @@ def test_validation():
         segsum.binned_sum_cols_batched(torch.zeros(2, 5, 1), torch.zeros(2, 4, dtype=torch.int32), 3)
     with pytest.raises(TypeError):
         segsum.binned_sum_cols_batched(torch.zeros(2, 5, 1), torch.zeros(2, 5), 3)
+
+
+def test_binned_sum_seventeen_columns():
+    """sizeshape's 16 moment columns plus the non-finite indicator."""
+    vals, bins = _inputs(B=2, N=4000, K=17, n_bins=33, seed=8)
+    bins = np.abs(bins)
+    want = np.asarray(jax.vmap(lambda v, b: R.binned_sum_cols(v, b, 33))(
+        jnp.asarray(vals), jnp.asarray(bins)))
+    got = segsum.binned_sum_cols_batched(torch.from_numpy(vals), torch.from_numpy(bins), 33)
+    assert got.shape == (2, 33, 17)
+    _check(got.numpy(), want)
+
+
+def _equal_with_nan(got, want):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got), np.nan_to_num(want))
+
+
+def _minmax_inputs(B, N, K, n_bins, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(0, 2, (B, N, K)).astype(np.float32)
+    vals[0, 5, 0] = np.nan
+    vals[-1, 7, K - 1] = np.nan
+    bins = rng.integers(-3, n_bins + 4, (B, N)).astype(np.int32)
+    bins[0, 5], bins[-1, 7] = 1, n_bins - 1
+    return vals, bins
+
+
+@pytest.mark.parametrize("K,n_bins", [(1, 17), (2, 65), (3, 257)])
+def test_binned_minmax_matches_pallas_kernel(K, n_bins):
+    vals, bins = _minmax_inputs(2, 3000, K, n_bins, seed=K)
+    want_mn, want_mx = jax_binned_minmax(jnp.asarray(vals), jnp.asarray(bins), n_bins,
+                                         interpret=True)
+    mn, mx = segsum.binned_minmax_batched(torch.from_numpy(vals), torch.from_numpy(bins), n_bins)
+    assert mn.shape == (2, n_bins, K) and np.isnan(mn.numpy()).sum() == 2
+    _equal_with_nan(mn.numpy(), np.asarray(want_mn))
+    _equal_with_nan(mx.numpy(), np.asarray(want_mx))
+
+
+def test_seg_minmax_cols_matches_jax_scatter():
+    from aliby_tpu_torch.extract import reductions as TR
+
+    vals, bins = _minmax_inputs(3, 2500, 2, 33, seed=9)
+    labels = np.abs(bins)  # the scatter wraps negative labels; labels are never negative
+    want = jax.vmap(lambda v, l: R.seg_minmax_cols(v, l, 32))(jnp.asarray(vals),
+                                                             jnp.asarray(labels))
+    got = TR.seg_minmax_cols(torch.from_numpy(vals), torch.from_numpy(labels), 32)
+    for g, w in zip(got, want):
+        _equal_with_nan(g.numpy(), np.asarray(w))
+    for init in (np.inf, 0.5):  # the kernel path and the custom-init scatter
+        w_min = jax.vmap(lambda v, l: R.seg_min(v, l, 32, init=init))(
+            jnp.asarray(vals[..., 1]), jnp.asarray(labels))
+        g_min = TR.seg_min(torch.from_numpy(vals[..., 1]), torch.from_numpy(labels), 32, init=init)
+        _equal_with_nan(g_min.numpy(), np.asarray(w_min))
+    w_max = jax.vmap(lambda v, l: R.seg_max(v, l, 32, init=-1.0))(
+        jnp.asarray(vals[..., 0]), jnp.asarray(labels))
+    g_max = TR.seg_max(torch.from_numpy(vals[..., 0]), torch.from_numpy(labels), 32, init=-1.0)
+    _equal_with_nan(g_max.numpy(), np.asarray(w_max))
+
+
+def _lookup_inputs(B, N, L, K, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(0, 3, (B, L, K)).astype(np.float32)
+    table[0, 1, 0], table[-1, 2, K - 1], table[0, 3, K - 1] = np.inf, -np.inf, np.nan
+    bins = rng.integers(-3, L + 4, (B, N)).astype(np.int32)
+    bins[0, :3] = 1
+    bins[-1, :3] = 2
+    return table, bins
+
+
+@pytest.mark.parametrize("L,K", [(16, 1), (64, 3), (256, 3)])
+def test_table_lookup_matches_pallas_kernel(L, K):
+    table, bins = _lookup_inputs(2, 3000, L, K, seed=L)
+    want = np.asarray(jax_table_lookup(jnp.asarray(table), jnp.asarray(bins), interpret=True))
+    got = segsum.table_lookup_batched(torch.from_numpy(table), torch.from_numpy(bins)).numpy()
+    assert got.shape == (2, 3000, K)
+    assert (got[(bins < 0) | (bins >= L)] == 0).all()
+    _equal_with_nan(got, want)
+
+
+def test_table_lookup_infinities_follow_the_kernel_path():
+    from aliby_tpu_torch.extract import reductions as TR
+
+    table, bins = _lookup_inputs(2, 500, 16, 3, seed=11)
+    got = TR.table_lookup(torch.from_numpy(table), torch.from_numpy(bins)).numpy()
+    gather = np.asarray(jax.vmap(R.table_lookup)(jnp.asarray(table), jnp.asarray(bins)))
+    assert gather.shape == got.shape == (2, 500, 3)
+    # the JAX CPU gather keeps +-inf; the kernel path (and the port) gives NaN
+    assert gather[0, 0, 0] == np.inf and np.isnan(got[0, 0, 0])
+    assert gather[-1, 0, 2] == -np.inf and np.isnan(got[-1, 0, 2])
+    finite = np.isfinite(gather) | np.isnan(gather)
+    _equal_with_nan(got[finite], gather[finite])
+    assert np.isnan(got[~finite]).all()
