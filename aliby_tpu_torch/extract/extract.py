@@ -9,9 +9,11 @@ one ``(n_names, F, max_labels)`` block. :class:`FusedTreeResult` turns that
 block back into the reference's ``(tileid_instructions, results)`` rows or
 its wide table.
 
-Ported families: ``sizeshape``, ``intensity`` and ``feret`` (the
-mask/image families) and the colocalisation pair (``corr``). The others
-raise ``NotImplementedError`` naming their ROADMAP item.
+Every cp_measure family is ported (``sizeshape``, ``intensity``, ``feret``
+and the families of ``extract/texture.py``) and the colocalisation pair
+(``corr``). The yeast/trap entries (cellfuns scalars, localisation, trap
+background, channel combinations) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from itertools import product
 import numpy as np
 import torch
 
-from aliby_tpu_torch.extract import features
+from aliby_tpu_torch.extract import features, texture
 
 # ---------------------------------------------------------------------------
 # Tree flattening (reference extract.py:33-74 semantics)
@@ -66,7 +68,6 @@ PIXEL_METRICS = ("mean", "total", "total_squared", "median", "max2p5pc",
                  "max5px_median", "std", "moment_of_inertia")
 TRAP_METRICS = ("imBackground", "background_max5")
 
-_TEXTURE_ITEM = "extract/texture.py (ROADMAP queue 1, item 7)"
 _CELLFUNS_ITEM = "extract/cellfuns.py and extract/localisation.py (ROADMAP queue 1, item 10)"
 
 
@@ -79,8 +80,11 @@ def _cp_family_fn(name: str):
         )
     if name == "feret":
         return lambda labels, max_labels, **kw: features.feret(labels, max_labels)
-    if name in _CP_FAMILY_KIND:
-        raise NotImplementedError(f"feature family {name!r}: {_TEXTURE_ITEM}")
+    if name == "zernike":
+        return lambda labels, max_labels, **kw: texture.zernike(labels, max_labels)
+    if name in ("texture", "granularity", "radial_distribution", "radial_zernikes"):
+        fn = getattr(texture, name)
+        return lambda labels, img, max_labels, **kw: fn(labels, img, max_labels)
     raise KeyError(name)
 
 
@@ -187,16 +191,31 @@ def reduce_z_traced(img: torch.Tensor, method, dim: int = 0) -> torch.Tensor:
 
 def tree_collect(plan_sig, labels: torch.Tensor, imgs, max_labels: int):
     """Evaluate every plan entry -> (sorted names ``"{entry}::{feature}"``,
-    (n, F, max_labels) tensor)."""
-    n_zernike = sum(
-        1 for e in plan_sig
-        if (e[0] == "mask_family" and e[1] == "zernike")
-        or (e[0] == "image_family" and e[1] == "radial_zernikes")
-    )
-    if n_zernike >= 2:
-        raise NotImplementedError(f"the shared zernike family pass: {_TEXTURE_ITEM}")
+    (n, F, max_labels) tensor).
+
+    Two or more zernike-family entries (``zernike`` and the per-channel
+    ``radial_zernikes``, which differ only in the integrand's weight) share
+    one geometry and polynomial pass (``texture.zernike_family_multi``)."""
     outputs = {}
+    zmask = [i for i, e in enumerate(plan_sig) if e[0] == "mask_family" and e[1] == "zernike"]
+    zimg = [(i, e[3]) for i, e in enumerate(plan_sig)
+            if e[0] == "image_family" and e[1] == "radial_zernikes"]
+    handled: set = set()
+    if len(zmask) + len(zimg) >= 2:
+        if zimg:
+            ims = torch.stack([_img2d(imgs, s) for _, s in zimg], dim=1)  # (F, C', H, W)
+        else:
+            ims = torch.zeros((labels.shape[0], 0) + labels.shape[1:], device=labels.device)
+        mask_out, img_outs = texture.zernike_family_multi(labels, ims, bool(zmask), max_labels)
+        for i in zmask:
+            outputs.update({f"{i}::Zernike_{n}_{m}": v for (n, m), v in mask_out.items()})
+            handled.add(i)
+        for c, (i, _) in enumerate(zimg):
+            outputs.update({f"{i}::RadialZernike_{n}_{m}": v for (n, m), v in img_outs[c].items()})
+            handled.add(i)
     for idx, entry in enumerate(plan_sig):
+        if idx in handled:
+            continue
         for name, v in _entry_values(entry, labels, imgs, max_labels).items():
             outputs[f"{idx}::{name}"] = v
     names = sorted(outputs)

@@ -14,13 +14,13 @@ powers multiply in the reference's square-and-multiply order (``_ipow``),
 so the CPU and the card compute the same bits as far as the reductions'
 summation order allows.
 
-Not ported yet (their callers, cellfuns and texture, wait for ROADMAP queue
-1 items 7 and 10): ``topk_*``, ``distance_to_boundary``,
-``minimum_enclosing_circle``.
+Not ported yet (their caller, cellfuns, waits for ROADMAP queue 1 item
+10): ``topk_*`` and ``distance_to_boundary``.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import numpy as np
@@ -28,6 +28,7 @@ import torch
 
 from aliby_tpu_torch.ops.imageops import _monotone_key, _sqrt
 from aliby_tpu_torch.ops.segsum import (
+    MAX_COLS,
     binned_minmax_batched,
     binned_sum_cols_batched,
     table_lookup_batched,
@@ -42,6 +43,9 @@ def _div(a: torch.Tensor, b) -> torch.Tensor:
     if not isinstance(b, torch.Tensor):
         b = torch.full((), b, dtype=a.dtype, device=a.device)
     return torch.div(a, b)
+
+
+_SUM_GROUP = MAX_COLS - 1  # value columns per pass of the sum kernel
 
 
 def _ipow(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -75,14 +79,27 @@ def binned_sum_cols(values: torch.Tensor, bins: torch.Tensor, n_bins: int) -> to
     indicator column, and a bin that received any non-finite value holds
     NaN in all K columns (an ``+inf`` input gives NaN, not ``+inf``). The
     same rule holds on the CPU and the GPU.
+
+    The sum kernel takes 32 columns, so the K columns go in groups of at
+    most 31, each beside the one indicator column (taken over all K). A
+    column's sum does not depend on what rides beside it, so the grouping
+    changes no bit; it runs on every device.
     """
+    if values.shape[-1] == 0:
+        raise ValueError("binned_sum_cols needs at least one column")
     values = values.to(torch.float32)
     finite = torch.isfinite(values)
-    clean = torch.where(finite, values, torch.zeros((), device=values.device))
     flag = (~finite).any(dim=-1, keepdim=True).to(torch.float32)
-    out = binned_sum_cols_batched(torch.cat([clean, flag], dim=-1), bins, int(n_bins))
+    zero = torch.zeros((), device=values.device)
+    sums = []
+    for k0 in range(0, values.shape[-1], _SUM_GROUP):
+        cols = slice(k0, k0 + _SUM_GROUP)
+        clean = torch.where(finite[..., cols], values[..., cols], zero)
+        out = binned_sum_cols_batched(torch.cat([clean, flag], dim=-1), bins, int(n_bins))
+        sums.append(out[..., :-1])
+    flagged = out[..., -1:] > 0  # the same indicator sums in every group
     nan = torch.full((), float("nan"), device=values.device)
-    return torch.where(out[..., -1:] > 0, nan, out[..., :-1])
+    return torch.where(flagged, nan, sums[0] if len(sums) == 1 else torch.cat(sums, dim=-1))
 
 
 def seg_sum_cols(values: torch.Tensor, labels: torch.Tensor, max_labels: int) -> torch.Tensor:
@@ -422,6 +439,101 @@ def convex_area_pixels(labels, max_labels: int, pmax=None, pmin=None, n_dir: int
     area = torch.where(yvalid, cnt, torch.zeros((), device=cnt.device)).sum(dim=-1)
     valid = torch.isfinite(pmax).all(dim=-1)
     return torch.where(valid, area, torch.full((), float("nan"), device=area.device))
+
+
+def minimum_enclosing_circle(labels: torch.Tensor, max_labels: int, bc_iters: int = 96,
+                             top_k: int = 12):
+    """Per-label minimum enclosing circle (cy, cx, r) of pixel centres, each
+    (B, max_labels): the disk of the zernike families.
+
+    As the reference: the candidates are the per-(label, row) x-extent
+    endpoints; ``bc_iters`` Badoiu-Clarkson steps home in on the centre;
+    two exact rounds take the ``top_k`` farthest endpoints, enumerate their
+    pair and triple circumcircles and keep the smallest that encloses them;
+    the radius is the largest distance from the chosen centre over all
+    endpoints. Ties take the lowest index on every device (``argmax`` and
+    ``argmin`` return the first extreme; the ``top_k`` farthest come from a
+    stable descending sort), as ``jax.lax.top_k`` does.
+
+    The search runs in float64, the reference's in f32. There a circle
+    through integer points at coordinates near 100 misses its own points by
+    ~1e-5 of r^2, the enclosure test allows 1e-6, and the exact rounds then
+    reject the true circle and leave the approximate centre (a radius a few
+    percent too large). In float64 the products of pixel coordinates are
+    exact and the test holds. The centre is rounded to f32 once, and the
+    radius is the f32 distance from that centre to the farthest endpoint,
+    the same expression a caller evaluates per pixel, so that pixel sits at
+    exactly r.
+
+    Absent labels return meaningless rows: mask with ``counts() > 0``.
+    """
+    py32, px32, vm = label_row_extents(labels, max_labels)
+    dev = labels.device
+    neg_inf = torch.full((), -INF, device=dev)
+    py32 = torch.where(vm, py32, torch.zeros((), device=dev))
+    py, px = py32.to(torch.float64), px32.to(torch.float64)
+    nv = vm.sum(dim=-1).clamp_min(1).to(torch.float64)
+    cy = py.sum(dim=-1) / nv  # invalid slots hold 0
+    cx = px.sum(dim=-1) / nv
+
+    def masked_d2(cy, cx, py=py, px=px):
+        dy, dx = py - cy.unsqueeze(-1), px - cx.unsqueeze(-1)
+        return torch.where(vm, dy * dy + dx * dx, neg_inf.to(py.dtype))
+
+    def take(a, idx):
+        return torch.gather(a, -1, idx)
+
+    for k in range(bc_iters):
+        far = masked_d2(cy, cx).argmax(dim=-1, keepdim=True)
+        cy = cy + (take(py, far)[..., 0] - cy) / (k + 2.0)
+        cx = cx + (take(px, far)[..., 0] - cx) / (k + 2.0)
+
+    pairs = torch.tensor(list(itertools.combinations(range(top_k), 2)), device=dev)
+    tris = torch.tensor(list(itertools.combinations(range(top_k), 3)), device=dev)
+    for _ in range(2):
+        d2 = masked_d2(cy, cx)
+        topv, topi = torch.sort(d2, dim=-1, descending=True, stable=True)
+        topv, topi = topv[..., :top_k], topi[..., :top_k]
+        ty, tx = take(py, topi), take(px, topi)  # (B, L, top_k)
+        tval = topv > -INF
+        # pair circles: centre = midpoint, r2 = a quarter of the pair's d2
+        ay, ax, by, bx = ty[..., pairs[:, 0]], tx[..., pairs[:, 0]], ty[..., pairs[:, 1]], tx[..., pairs[:, 1]]
+        pcy = (ay + by) / 2.0
+        pcx = (ax + bx) / 2.0
+        pr2 = ((ay - by) * (ay - by) + (ax - bx) * (ax - bx)) / 4.0
+        pok = tval[..., pairs[:, 0]] & tval[..., pairs[:, 1]]
+        # triple circumcircles
+        t0y, t0x = ty[..., tris[:, 0]], tx[..., tris[:, 0]]
+        t1y, t1x = ty[..., tris[:, 1]], tx[..., tris[:, 1]]
+        t2y, t2x = ty[..., tris[:, 2]], tx[..., tris[:, 2]]
+        d = 2.0 * (t0x * (t1y - t2y) + t1x * (t2y - t0y) + t2x * (t0y - t1y))
+        s0 = t0x * t0x + t0y * t0y
+        s1 = t1x * t1x + t1y * t1y
+        s2 = t2x * t2x + t2y * t2y
+        det_ok = d.abs() > 1e-9
+        safe_d = torch.where(det_ok, d, torch.ones((), dtype=d.dtype, device=dev))
+        ucx = (s0 * (t1y - t2y) + s1 * (t2y - t0y) + s2 * (t0y - t1y)) / safe_d
+        ucy = (s0 * (t2x - t1x) + s1 * (t0x - t2x) + s2 * (t1x - t0x)) / safe_d
+        tr2 = (t0y - ucy) * (t0y - ucy) + (t0x - ucx) * (t0x - ucx)
+        tok = det_ok & tval[..., tris[:, 0]] & tval[..., tris[:, 1]] & tval[..., tris[:, 2]]
+        ccy = torch.cat([pcy, ucy], dim=-1)  # (B, L, C)
+        ccx = torch.cat([pcx, ucx], dim=-1)
+        cr2 = torch.cat([pr2, tr2], dim=-1)
+        cok = torch.cat([pok, tok], dim=-1)
+        # validity: the circle encloses the top_k set (within fp tolerance)
+        ey = ty.unsqueeze(-2) - ccy.unsqueeze(-1)
+        ex = tx.unsqueeze(-2) - ccx.unsqueeze(-1)
+        dd = torch.where(tval.unsqueeze(-2), ey * ey + ex * ex, neg_inf.to(ey.dtype))  # (B, L, C, top_k)
+        encl = dd.amax(dim=-1) <= cr2 * (1.0 + 1e-6) + 1e-6
+        score = torch.where(cok & encl, cr2, torch.full((), INF, dtype=cr2.dtype, device=dev))
+        best = score.argmin(dim=-1, keepdim=True)
+        has = torch.isfinite(take(score, best)[..., 0])
+        cy = torch.where(has, take(ccy, best)[..., 0], cy)
+        cx = torch.where(has, take(ccx, best)[..., 0], cx)
+
+    cy, cx = cy.to(torch.float32), cx.to(torch.float32)
+    r = _sqrt(masked_d2(cy, cx, py32, px32).amax(dim=-1).clamp_min(0.0))
+    return cy, cx, r
 
 
 # ---------------------------------------------------------------------------

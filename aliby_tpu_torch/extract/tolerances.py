@@ -20,6 +20,23 @@ reference: the JAX package on the CPU (``tests/test_torch_features.py``,
   * the standard deviations sqrt(E[x^2] - mean^2): a near-constant object
     cancels to the ulp of mean^2, so atol is 1e-5 of the largest mean.
 
+- The Haralick features (``Texture_*``): the reference takes each
+  (angle, label) group's totals as differences of one f32 running sum over
+  all 4 H W pair slots of the image, whose error grows with the running
+  total (up to ~eps log2(N) times it) and not with the group's own; the
+  port's running sum is float64. Against the reference a feature is held
+  to atol 5e-5 of its largest |value| (measured: up to 8.4e-6, the inverse
+  difference moment, on 96x96 and 128x128 fields). The variances subtract
+  a squared mean from a second moment, so there atol is 1e-4 of the terms
+  that cancel, per object: SumAverage^2 for SumVariance and Variance
+  (measured 2.4e-5 and 4.5e-6), and that over the Variance for the
+  Correlation, a ratio of two such differences.
+- The zernike magnitudes (``Zernike_n_m``, ``RadialZernike_n_m``) are
+  |sum_p w_p R_nm(rho_p) e^{i m theta_p}| (n + 1) / (pi r^2), near 0 for a
+  symmetric object: atol is 2e-6 of (n + 1) times the object's (0, 0)
+  moment, the magnitude of the terms (|R_nm| <= 1; cos and sin of
+  m theta <= 9 pi carry an absolute rounding error of ~2e-6 a term;
+  measured 4e-7).
 - costes and costes_2 decide a threshold (the stop-k of the descending
   scan, the sign of a correlation near 0): one ulp in the Deming slope can
   move it, so at most ``THRESHOLD_SHARE`` of the object values (at least
@@ -80,6 +97,17 @@ def tolerance(feat: str, ref: Callable[[str], np.ndarray]):
         terms = (np.abs(ref("Location_CenterMassIntensity_X"))
                  + np.abs(ref("Location_CenterMassIntensity_Y")))
         return rtol, 1e-6 * np.nan_to_num(terms)
+    if feat.startswith("Texture_"):
+        name = feat.split("_")[1]
+        if name in ("SumVariance", "Variance", "Correlation"):
+            terms = ref(feat.replace(name, "SumAverage")) ** 2
+            if name == "Correlation":
+                terms = terms / np.maximum(ref(feat.replace(name, "Variance")), 1e-6)
+            return rtol, 1e-4 * np.nan_to_num(terms)
+        return rtol, 5e-5 * _largest(ref(feat))
+    if feat.startswith(("Zernike_", "RadialZernike_")):
+        family, n, _m = feat.split("_")
+        return rtol, 2e-6 * (int(n) + 1) * np.nan_to_num(np.abs(ref(f"{family}_0_0")))
     if feat.startswith("Intensity_StdIntensity"):
         return rtol, 1e-5 * _largest(ref(feat.replace("Std", "Mean")))
     return rtol, 1e-6 * _largest(ref(feat))

@@ -1,5 +1,5 @@
-// Batched per-bin reductions for Hopper (sm_90a): sums, min/max, and the
-// per-pixel lookup of a small per-bin table.
+// Per-bin reductions for Hopper (sm_90a): batched sums, min/max and the
+// per-pixel lookup of a small per-bin table, and the unbatched per-label sums.
 //
 // binned_sum_cols replaces aliby_tpu/ops/pallas_segsum.py
 // binned_sum_cols_batched (_sum_kernel): (B, N, K) f32 values and (B, N)
@@ -21,6 +21,20 @@
 // 2^24. Bound on the H100: device-memory bytes (one read of values and
 // bins); the compares cost n_bins/blockDim passes over the staged pixels,
 // which is why one block covers up to 1024 bins at once.
+//
+// segment_sum replaces pallas_segsum.py segment_sum_matmul (_kernel): the
+// unbatched form, (N, K) f32 values and (N,) int32 labels -> (max_labels, K)
+// per-label sums, K <= 32; label 0, negative labels and labels above
+// max_labels add nothing. The TPU kernel accumulates onehot[P, L]^T @
+// values[P, K] per 2048-pixel tile on the MXU, one grid step after another.
+// Here the grid runs over the pixel chunks of the one array, in parallel:
+// each thread owns one label (1..max_labels; there is no background row),
+// walks its block's staged pixels in order (the same device code as pass 1
+// above), and writes its chunk sums to a partial buffer that pass 2 adds in
+// chunk order. No atomics: two runs give the same bits. A non-finite value
+// reaches only its own label's sum, by IEEE addition (the matmul's 0 x inf
+// made the whole column NaN for every label). Bound: device-memory bytes
+// (one read of values and labels).
 //
 // binned_minmax replaces pallas_segsum.py binned_minmax_batched
 // (_minmax_kernel): (B, N, K) f32 values, (B, N) int32 bins -> per-bin min
@@ -58,6 +72,31 @@ constexpr int32_t kNegInfKey = (int32_t)0x807fffff;  // key of -inf
 // pixels staged in shared memory at a time: (K + 1) * stage * 4 <= 36 KB
 inline int stage_for(int K) { return K <= 8 ? 1024 : (K <= 16 ? 512 : 256); }
 
+// The sums of the pixels [start, end) whose bin is `mine`, K columns, taken
+// in pixel order through a staged tile; every thread of the block must call.
+template <int KB>
+__device__ __forceinline__ void chunk_sums(const float* __restrict__ v,
+                                           const int32_t* __restrict__ bb, int64_t start,
+                                           int64_t end, int K, int mine, int stage,
+                                           int32_t* s_bins, float* s_vals, float (&acc)[KB]) {
+#pragma unroll
+  for (int k = 0; k < KB; ++k) acc[k] = 0.0f;
+  for (int64_t t0 = start; t0 < end; t0 += stage) {
+    const int len = (int)(end - t0 < stage ? end - t0 : stage);
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += blockDim.x) s_bins[i] = bb[t0 + i];
+    for (int i = threadIdx.x; i < len * K; i += blockDim.x) s_vals[i] = v[t0 * K + i];
+    __syncthreads();
+    for (int i = 0; i < len; ++i) {
+      if (s_bins[i] == mine) {
+#pragma unroll
+        for (int k = 0; k < KB; ++k)
+          if (k < K) acc[k] = __fadd_rn(acc[k], s_vals[i * K + k]);
+      }
+    }
+  }
+}
+
 template <int KB>
 __global__ void __launch_bounds__(1024)
 binned_sum_partial_kernel(const float* __restrict__ vals, const int32_t* __restrict__ bins,
@@ -77,24 +116,35 @@ binned_sum_partial_kernel(const float* __restrict__ vals, const int32_t* __restr
   for (int bin0 = 0; bin0 < n_bins; bin0 += blockDim.x) {
     const int mine = bin0 + threadIdx.x;
     float acc[KB];
-#pragma unroll
-    for (int k = 0; k < KB; ++k) acc[k] = 0.0f;
-    for (int64_t t0 = start; t0 < end; t0 += stage) {
-      const int len = (int)(end - t0 < stage ? end - t0 : stage);
-      __syncthreads();
-      for (int i = threadIdx.x; i < len; i += blockDim.x) s_bins[i] = bb[t0 + i];
-      for (int i = threadIdx.x; i < len * K; i += blockDim.x) s_vals[i] = v[t0 * K + i];
-      __syncthreads();
-      for (int i = 0; i < len; ++i) {
-        if (s_bins[i] == mine) {
-#pragma unroll
-          for (int k = 0; k < KB; ++k)
-            if (k < K) acc[k] = __fadd_rn(acc[k], s_vals[i * K + k]);
-        }
-      }
-    }
+    chunk_sums<KB>(v, bb, start, end, K, mine, stage, s_bins, s_vals, acc);
     if (mine < n_bins) {
       float* out = partial + (((int64_t)b * n_chunks + c) * n_bins + mine) * K;
+#pragma unroll
+      for (int k = 0; k < KB; ++k)
+        if (k < K) out[k] = acc[k];
+    }
+  }
+}
+
+// One array of N pixels; the grid runs over its chunks. Thread t of a pass
+// owns label l0 + t + 1; row l - 1 of a chunk's partial block holds label l.
+template <int KB>
+__global__ void __launch_bounds__(1024)
+segment_sum_partial_kernel(const float* __restrict__ vals, const int32_t* __restrict__ labels,
+                           float* __restrict__ partial, int64_t N, int K, int max_labels,
+                           int64_t chunk, int stage) {
+  extern __shared__ unsigned char smem[];
+  int32_t* s_bins = reinterpret_cast<int32_t*>(smem);
+  float* s_vals = reinterpret_cast<float*>(s_bins + stage);
+
+  const int64_t start = (int64_t)blockIdx.x * chunk;
+  const int64_t end = start + chunk < N ? start + chunk : N;
+  for (int l0 = 0; l0 < max_labels; l0 += blockDim.x) {
+    const int mine = l0 + threadIdx.x + 1;
+    float acc[KB];
+    chunk_sums<KB>(vals, labels, start, end, K, mine, stage, s_bins, s_vals, acc);
+    if (mine <= max_labels) {
+      float* out = partial + ((int64_t)blockIdx.x * max_labels + (mine - 1)) * K;
 #pragma unroll
       for (int k = 0; k < KB; ++k)
         if (k < K) out[k] = acc[k];
@@ -261,6 +311,38 @@ extern "C" int binned_sum_cols(const float* vals, const int32_t* bins, float* pa
   const int64_t total = (int64_t)B * n_bins * K;
   binned_sum_combine_kernel<<<grid_for(total), 256, 0, s>>>(partial, out, B, (int)n_chunks,
                                                            n_bins, K);
+  return (int)cudaGetLastError();
+}
+
+// partial must hold ceil(N / chunk) * max_labels * K floats; out holds
+// max_labels * K.
+extern "C" int segment_sum(const float* vals, const int32_t* labels, float* partial,
+                           float* out, int64_t N, int K, int max_labels, int64_t chunk,
+                           void* stream) {
+  if (N < 1 || K < 1 || K > kMaxK || max_labels < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_chunks = (N + chunk - 1) / chunk;
+  if (n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int threads = ((max_labels + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
+  const int stage = stage_for(K);
+  const size_t smem = (size_t)stage * sizeof(int32_t) + (size_t)stage * K * sizeof(float);
+  const unsigned grid = (unsigned)n_chunks;
+  if (K <= 8)
+    segment_sum_partial_kernel<8><<<grid, threads, smem, s>>>(vals, labels, partial, N, K,
+                                                             max_labels, chunk, stage);
+  else if (K <= 16)
+    segment_sum_partial_kernel<16><<<grid, threads, smem, s>>>(vals, labels, partial, N, K,
+                                                              max_labels, chunk, stage);
+  else
+    segment_sum_partial_kernel<32><<<grid, threads, smem, s>>>(vals, labels, partial, N, K,
+                                                              max_labels, chunk, stage);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int64_t total = (int64_t)max_labels * K;
+  binned_sum_combine_kernel<<<grid_for(total), 256, 0, s>>>(partial, out, 1, (int)n_chunks,
+                                                           max_labels, K);
   return (int)cudaGetLastError();
 }
 

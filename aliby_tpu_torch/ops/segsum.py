@@ -1,8 +1,10 @@
-"""Batched per-bin reductions (counterpart of ``aliby_tpu/ops/pallas_segsum.py``).
+"""Per-bin reductions (counterpart of ``aliby_tpu/ops/pallas_segsum.py``).
 
-Three kernels of that module are ported: :func:`binned_sum_cols_batched`,
-:func:`binned_minmax_batched` and :func:`table_lookup_batched`
-(``segment_sum_matmul``, off the main path, is not).
+All four kernels of that module are ported: the batched
+:func:`binned_sum_cols_batched`, :func:`binned_minmax_batched` and
+:func:`table_lookup_batched`, which carry the feature bank, and the
+unbatched :func:`segment_sum_matmul` (wrapper :func:`segment_sum_auto`),
+which no production path calls, as in the reference.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for CPU tensors
 and launches its CUDA kernel (``kernels/csrc/segsum.cu``) for CUDA tensors;
@@ -105,6 +107,77 @@ def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
 
 
 binned_sum_cols_batched.launches = 0
+
+
+def _prep_segment(values: torch.Tensor, labels: torch.Tensor):
+    if values.device != labels.device:
+        raise ValueError("values and labels must share a device")
+    _check_int(labels)
+    flat_l = labels.reshape(-1)
+    if flat_l.numel() == 0 or values.numel() % flat_l.numel():
+        raise ValueError(
+            f"values {tuple(values.shape)} do not give whole rows for "
+            f"labels {tuple(labels.shape)}"
+        )
+    return values.reshape(flat_l.numel(), -1).to(torch.float32), flat_l
+
+
+def segment_sum_matmul_plain(values: torch.Tensor, labels: torch.Tensor,
+                             max_labels: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_sum_matmul` (``index_add_``)."""
+    vals, flat_l = _prep_segment(values, labels)
+    flat_l = flat_l.to(torch.int64)
+    valid = (flat_l >= 1) & (flat_l <= max_labels)
+    idx = torch.where(valid, flat_l - 1, max_labels)  # dropped labels -> spare row
+    out = torch.zeros(max_labels + 1, vals.shape[1], dtype=torch.float32, device=vals.device)
+    out.index_add_(0, idx, vals)
+    return out[:-1]
+
+
+def segment_sum_matmul(values: torch.Tensor, labels: torch.Tensor,
+                       max_labels: int) -> torch.Tensor:
+    """Per-label sums of K value columns, unbatched: (N, K) values (or any
+    shape that flattens to it) and (N,) int labels -> (max_labels, K) f32,
+    label k in row k - 1. Label 0, negative labels and labels above
+    ``max_labels`` add nothing. K <= 32 on CUDA, where the sums are
+    deterministic (fixed order, no atomics).
+
+    The reference's ``tile`` and ``interpret`` arguments are gone: the
+    per-tile one-hot matmul (and its tile % 1024 rule) was the TPU's
+    mechanism, and the kernel has no interpreter. A non-finite value reaches
+    its own label's sum only (IEEE addition), where the reference's matmul
+    made the whole column NaN for every label.
+    """
+    if _device_of(values) == "cpu":
+        return segment_sum_matmul_plain(values, labels, max_labels)
+    vals, flat_l = _prep_segment(values, labels)
+    N, K = vals.shape
+    if not 1 <= K <= MAX_COLS:
+        raise ValueError(f"the kernel takes 1..{MAX_COLS} columns, got {K}")
+    if max_labels < 1:
+        raise ValueError(f"max_labels must be positive, got {max_labels}")
+    vals = vals.contiguous()
+    flat_l = _int32_bins(flat_l, max_labels + 1)
+    n_chunks = -(-N // CHUNK)
+    partial = torch.empty(n_chunks * max_labels * K, dtype=torch.float32, device=vals.device)
+    out = torch.empty(max_labels, K, dtype=torch.float32, device=vals.device)
+    lib = _build.load("segsum")
+    _build.check(
+        lib.segment_sum(vals.data_ptr(), flat_l.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                        N, K, max_labels, CHUNK, _build.stream_of(vals)),
+        "segment_sum_matmul",
+    )
+    segment_sum_matmul.launches += 1
+    return out
+
+
+segment_sum_matmul.launches = 0
+
+
+def segment_sum_auto(values: torch.Tensor, labels: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """:func:`segment_sum_matmul` under the reference's wrapper name (there
+    it picks the interpreter off the TPU; here the tensors' device decides)."""
+    return segment_sum_matmul(values, labels, max_labels)
 
 
 def binned_minmax_batched_plain(values: torch.Tensor, bins: torch.Tensor, n_bins: int):

@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a ragged one: stencils, per-bin min/max and
    table lookup bit-equal (NaN positions equal); per-bin sums (K = 3 and
-   K = 17) with exact counts, sums within rtol 1e-5, bit-equal across runs.
+   K = 17) with exact counts, sums within rtol 1e-5, bit-equal across runs;
+   the unbatched ``segment_sum_matmul`` at (16 x 65,536, 16) -> 256 labels
+   and a ragged N (integer-valued columns exact, the rest within the
+   worst-case f32 summation bound, bit-equal across runs); the column
+   grouping of ``reductions.binned_sum_cols`` at K = 367 against the plain
+   sum, with a non-finite value poisoning all 367 columns of its bin.
 3. slice 1 (segmentation): eight 256x256 five-channel Cell Painting fields,
    objects ``nuclei`` (channel 0, second channel 3) and ``cell`` (channel 3,
    second channel 0) through ``dispatch_segmenter("cellpose")`` as one batch
@@ -28,11 +33,23 @@ Phases, in order; any failure exits non-zero:
    the parity tests' tolerances (``aliby_tpu_torch.extract.tolerances``:
    no value beyond them but in costes' threshold scan, at most 5% there);
    the 1080x1080 field must take the sticky wide pass (cap 256, uint8 kept).
-4. report: per-kernel times on the fused path's own inputs (median of 21
+   slice 3 (the default bank): ``build_pipeline_steps`` with its default
+   features (radial_zernikes, intensity with edges, feret, texture,
+   radial_distribution, zernike; sizeshape; the coloc tree) on all five
+   channels, through the same entry points and held to the same checks:
+   kernels 1-5 launched, labels equal to ``segment_grouped``'s, identical
+   runs, the golden default-bank column set, the wide pass, f32 on the card
+   against the CPU; the integer rasters behind the new families (gray
+   levels, rings, wedges, centres) and the minimum enclosing circles have
+   the same bits on the card and the CPU. ``segment_sum_matmul`` has no caller on any path, here as
+   in the JAX package: phases 2 and 4 run it.
+4. report: per-kernel times on the default-bank step's own inputs (median of 21
    runs, CUDA events) beside the plain version, the bound and the library
    call, each kernel's output held to the plain version's on those inputs
-   as in phase 2; the fused step's fields/s, stage breakdown, device idle share and
-   peak memory; the ``kernels`` JSON line; the card's name and power limit;
+   as in phase 2, and ``segment_sum_matmul`` at phase 2's shape; each fused
+   step's fields/s, stage breakdown and peak memory, the default bank's
+   device idle share; the ``kernels`` JSON line (six kernels, launches counted
+   over one default-bank step); the card's name and power limit;
    and, last, ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -65,11 +82,18 @@ REPLACES = {
     "binned_sum_cols_batched": "aliby_tpu/ops/pallas_segsum.py:234",
     "binned_minmax_batched": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched": "aliby_tpu/ops/pallas_segsum.py:302",
+    "segment_sum_matmul": "aliby_tpu/ops/pallas_segsum.py:64",
 }
-EXAMPLE01 = dict(channels_to_segment={"nuclei": 0, "cell": 3},
-                 channels_to_extract=[0, 1, 2, 3, 4],
-                 features_to_extract=("intensity", "sizeshape"),
+SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
+DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
+                    channels_to_extract=[0, 1, 2, 3, 4])
+EXAMPLE01 = dict(DEFAULT_BANK, features_to_extract=("intensity", "sizeshape"),
                  cp_measure_feature_kwargs={"intensity": {"edge_measurements": False}})
+# name -> build_pipeline_steps arguments, rows of the (mono, coloc) feature blocks, golden column file
+FUSED_PATHS = {
+    "example-01": (EXAMPLE01, (158, 80), "example01_columns.txt"),
+    "default bank": (DEFAULT_BANK, (685, 80), "default_bank_columns.txt"),
+}
 
 
 def log(*a):
@@ -164,12 +188,14 @@ def tiled_labels(base: np.ndarray, B: int, H: int, W: int) -> np.ndarray:
 
 class Recorder:
     """Wraps a module attribute to keep the arguments of the first call
-    that ``want(*args)`` accepts (by default the first call)."""
+    that ``want(*args)`` accepts (by default the first call). Several
+    recorders may wrap one attribute: each passes the call on to the one
+    entered before it."""
 
     def __init__(self, module, name, want=None):
         self.module, self.name = module, name
-        self.fn = getattr(module, name)
         self.want = want or (lambda *a: True)
+        self.fn = None
         self.args = None
 
     def __call__(self, *args, **kwargs):
@@ -178,6 +204,7 @@ class Recorder:
         return self.fn(*args, **kwargs)
 
     def __enter__(self):
+        self.fn = getattr(self.module, self.name)
         setattr(self.module, self.name, self)
         return self
 
@@ -281,6 +308,66 @@ def kernel_checks(rng, dev) -> None:
             f"binned_sum_cols_batched K=17 counts exact, max rel err {rel:.3g}, max err / bound "
             f"{ratio:.3g}, deterministic")
 
+    # the unbatched per-label sums: label 0, negative labels and labels past
+    # max_labels are dropped; half the columns hold small integers (exact sums)
+    N0, K, max_labels = SEGMENT_SUM_SHAPE
+    for N in (N0, 200 * 312 + 7):
+        v, lab = segment_sum_inputs(rng, N, K, max_labels, dev)
+        got = segsum.segment_sum_matmul(v, lab, max_labels)
+        again = segsum.segment_sum_matmul(v, lab, max_labels)
+        want = segsum.segment_sum_matmul_plain(v, lab, max_labels)
+        sync()
+        if not torch.equal(got, again):
+            raise AssertionError(f"segment_sum_matmul differs between runs at N {N}")
+        if not torch.equal(got[:, K // 2:], want[:, K // 2:]):
+            raise AssertionError(f"segment_sum_matmul integer-valued columns != plain at N {N}")
+        rel, ratio = check_segment_sums(got, want, v, lab, max_labels, f"N {N}")
+        log(f"[kernels] segment_sum_matmul ({N}, {K}) -> {max_labels} labels: integer-valued "
+            f"columns exact, max rel err {rel:.3g}, max err / bound {ratio:.3g}, deterministic")
+
+    # the column grouping of the sum wrapper: 367 columns = 12 passes of <= 31 + the flag
+    from aliby_tpu_torch.extract import reductions
+
+    B, N, K, n_bins = 2, 256 * 256, 367, 65
+    v = torch.from_numpy(rng.normal(0, 1, (B, N, K)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.integers(-2, n_bins + 2, (B, N)).astype(np.int32)).to(dev)
+    b[1, 5] = 7  # the pixel that turns non-finite below
+    before = segsum.binned_sum_cols_batched.launches
+    got = reductions.binned_sum_cols(v, b, n_bins)
+    n_pass = segsum.binned_sum_cols_batched.launches - before
+    want = segsum.binned_sum_cols_batched_plain(v, b, n_bins)
+    narrow = reductions.binned_sum_cols(v[..., 100:120].contiguous(), b, n_bins)
+    sync()
+    if n_pass != 12 or got.shape != (B, n_bins, K) or not torch.equal(got[..., 100:120], narrow):
+        raise AssertionError(f"binned_sum_cols K=367: {n_pass} passes, shape {tuple(got.shape)}, "
+                             f"or a column's bits depend on its group")
+    rel, ratio = check_sums(got, want, v, b, n_bins, "K=367")
+    v[1, 5, 366] = float("inf")
+    poisoned = reductions.binned_sum_cols(v, b, n_bins)
+    keep = torch.ones(B, n_bins, dtype=torch.bool, device=dev)
+    keep[1, 7] = False
+    if not (torch.isnan(poisoned[1, 7]).all() and torch.equal(poisoned[keep], got[keep])):
+        raise AssertionError("binned_sum_cols K=367: a non-finite value must poison all K columns "
+                             "of its own bin and nothing else")
+    log(f"[kernels] binned_sum_cols ({B}, {N}, {K}) -> {n_bins} bins in {n_pass} passes: max rel "
+        f"err {rel:.3g}, max err / bound {ratio:.3g}; a column's bits do not depend on its group; "
+        f"one shared non-finite flag")
+
+
+def segment_sum_inputs(rng, N, K, max_labels, dev):
+    """(N, K) values, the upper half of the columns small integers, and (N,)
+    labels from -2 to max_labels + 2."""
+    vals = rng.normal(0, 1, (N, K)).astype(np.float32)
+    vals[:, K // 2:] = rng.integers(0, 4, (N, K - K // 2))
+    labels = rng.integers(-2, max_labels + 3, N).astype(np.int32)
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(labels).to(dev)
+
+
+def check_segment_sums(got, want, values, labels, max_labels, what):
+    """``check_sums`` for the unbatched kernel: label k is bin k - 1 of one image."""
+    return check_sums(got[None], want[None], values[None], (labels - 1)[None], max_labels,
+                      f"segment_sum_matmul {what}")
+
 
 def check_sums(got, want, values, bins, n_bins, what: str) -> float:
     """Per-bin sums of the kernel against the plain version's on the same
@@ -296,13 +383,13 @@ def check_sums(got, want, values, bins, n_bins, what: str) -> float:
     v = values.reshape(-1, K)
     counts = ((v == 0) | (v == 1)).all(dim=0)
     if not torch.equal(got[..., counts], want[..., counts]):
-        raise AssertionError(f"binned_sum_cols_batched counts != plain ({what})")
+        raise AssertionError(f"the sum kernel's counts != plain ({what})")
     magnitude = segsum.binned_sum_cols_batched_plain(values.abs(), bins, n_bins)
     n = segsum.binned_sum_cols_batched_plain(torch.ones_like(values[..., :1]), bins, n_bins)
     bound = 2 * (n - 1).clamp_min(0) * F32_EPS * magnitude
     bad = (got - want).abs() > bound
     if bad.any():
-        raise AssertionError(f"binned_sum_cols_batched beyond the summation bound of plain "
+        raise AssertionError(f"the sum kernel's sums beyond the summation bound of plain "
                              f"({what}): {int(bad.sum())} sums")
     d = (got - want).abs()
     nz, off = want != 0, d > 0
@@ -477,10 +564,10 @@ def stage_breakdown(engine, images: np.ndarray, reps: int = 5) -> None:
 def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
     """Host time of each stage of the fused step, every stage serialised
     with synchronize() (median of ``reps``): segmentation (both objects, one
-    batch), the sizeshape, intensity and colocalisation families (the MAD
-    bisection of intensity shown apart), and the rest (z-reductions, label
-    packing, the readback)."""
-    from aliby_tpu_torch.extract import features
+    batch), each feature family (the MAD bisection of intensity and the
+    minimum enclosing circle of the zernike pass shown apart), and the rest
+    (z-reductions, label packing, the readback)."""
+    from aliby_tpu_torch.extract import features, texture
 
     times: dict[str, float] = {}
 
@@ -494,13 +581,18 @@ def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
             return out
         return wrapper
 
-    saved = {n: getattr(features, n) for n in ("sizeshape", "intensity", "mad_from_sorted")}
+    apart = {"intensity MAD": (features, "mad_from_sorted"),
+             "zernike MEC": (texture, "minimum_enclosing_circle")}
+    stages = {"sizeshape": (features, "sizeshape"), "intensity": (features, "intensity"),
+              "feret": (features, "feret"), "texture": (texture, "texture"),
+              "radial_distribution": (texture, "radial_distribution"),
+              "zernike family": (texture, "zernike_family_multi"), **apart}
+    saved = {label: getattr(mod, name) for label, (mod, name) in stages.items()}
     saved_corr = dict(features.CORRELATION_FEATURES)
     for e in engines:
         e._segment_all = timed("segmentation", e._segment_all)
-    features.sizeshape = timed("sizeshape", saved["sizeshape"])
-    features.intensity = timed("intensity", saved["intensity"])
-    features.mad_from_sorted = timed("intensity MAD", saved["mad_from_sorted"])
+    for label, (mod, name) in stages.items():
+        setattr(mod, name, timed(label, saved[label]))
     for name, fn in saved_corr.items():
         features.CORRELATION_FEATURES[name] = timed("coloc", fn)
     runs = []
@@ -513,16 +605,16 @@ def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
             total = (time.perf_counter() - t0) * 1e3
             parts = dict(times)
             parts["packing and the rest"] = total - sum(
-                v for k, v in parts.items() if k != "intensity MAD")
+                v for k, v in parts.items() if k not in apart)
             parts["total"] = total
             runs.append(parts)
     finally:
         for e in engines:
             del e._segment_all
-        for n, fn in saved.items():
-            setattr(features, n, fn)
+        for label, (mod, name) in stages.items():
+            setattr(mod, name, saved[label])
         features.CORRELATION_FEATURES.update(saved_corr)
-    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    med = {k: statistics.median(r.get(k, 0.0) for r in runs) for k in runs[0]}
     total = med.pop("total")
     log(f"[stages] fused step {tuple(pixels.shape)}: total {total:.2f} ms; " + ", ".join(
         f"{k} {v:.2f} ms ({100 * v / total:.0f}%)" for k, v in med.items()))
@@ -636,8 +728,9 @@ def compare_features(gpu_feats, cpu_feats, fields, what: str) -> None:
         raise AssertionError(f"GPU/CPU feature values beyond tolerance: {off}")
 
 
-def fused_checks(pixels, slice1_labels):
-    """Phase 3, slice 2: the example-01 pipeline through the fused step."""
+def fused_checks(what: str, pixels, slice1_labels, reps: int, profile: bool):
+    """Phase 3, slices 2 and 3: one pipeline of ``FUSED_PATHS`` through the
+    fused step, its five kernels counted over one step."""
     from aliby_tpu_torch.engine.builders import build_pipeline_steps
     from aliby_tpu_torch.engine.compiled import try_compile
     from aliby_tpu_torch.engine.fused import results_from_fused
@@ -646,27 +739,42 @@ def fused_checks(pixels, slice1_labels):
     from aliby_tpu_torch.models.segment import dispatch_segmenter
     from aliby_tpu_torch.ops import segsum, stencil
 
+    kwargs, rows, golden_file = FUSED_PATHS[what]
     wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
                 "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
                 "binned_minmax_batched": segsum.binned_minmax_batched,
-                "table_lookup_batched": segsum.table_lookup_batched}
-    step = try_compile(build_pipeline_steps(**EXAMPLE01))
+                "table_lookup_batched": segsum.table_lookup_batched,
+                "segment_sum_matmul": segsum.segment_sum_matmul}
+    # counted with the others, and held to 0: no production path calls it
+    off_path = {"segment_sum_matmul"}
+    step = try_compile(build_pipeline_steps(**kwargs))
     if step is None:
-        raise AssertionError("try_compile found the example-01 pipeline ineligible")
+        raise AssertionError(f"try_compile found the {what} pipeline ineligible")
     t0 = time.perf_counter()
     step.fused(pixels)  # warm-up
     t_first = time.perf_counter() - t0
+
+    def sum_of(K, n_bins=None):
+        return lambda v, b, n: v.shape[-1] == K and n_bins in (None, n)
 
     recorders = {
         "successor_prop": Recorder(flows, "successor_prop"),
         "diffuse_heat": Recorder(flows, "diffuse_heat"),
         # sizeshape's moment pass: 16 columns + the non-finite indicator
-        "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched",
-                                            lambda v, *a: v.shape[-1] == 17),
+        "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched", sum_of(17)),
         "binned_minmax_batched": Recorder(reductions, "binned_minmax_batched"),
         "table_lookup_batched": Recorder(reductions, "table_lookup_batched",
                                          lambda t, *a: t.shape[-1] == 3),
         "costes histogram": Recorder(features, "binned_sum_cols_batched"),
+        # the default bank's shapes: a zernike entry's first group (31 columns
+        # + the indicator), the radial distribution's (label, ring) bins,
+        # texture's one-column range, the zernike pass's per-channel lookup
+        "zernike group": Recorder(reductions, "binned_sum_cols_batched", sum_of(32)),
+        "radial rings": Recorder(reductions, "binned_sum_cols_batched", sum_of(11)),
+        "texture range": Recorder(reductions, "binned_minmax_batched",
+                                  lambda v, *a: v.shape[-1] == 1),
+        "channel lookup": Recorder(reductions, "table_lookup_batched",
+                                   lambda t, *a: t.shape[-1] == 5),
     }
     for w in wrappers.values():
         w.launches = 0
@@ -675,68 +783,77 @@ def fused_checks(pixels, slice1_labels):
         run1 = step.fused(pixels)
         t_run1 = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
-    log(f"[fused] example-01 step, 8 fields x 2 objects: first call {t_first * 1e3:.1f} ms, "
+    log(f"[fused] {what} step, 8 fields x 2 objects: first call {t_first * 1e3:.1f} ms, "
         f"counted run {t_run1 * 1e3:.1f} ms; launches {launches}")
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the fused path")
+        if name in off_path:
+            if n != 0:
+                raise AssertionError(f"kernel {name} has no caller on the fused path, yet was "
+                                     f"launched {n} times ({what})")
+        elif n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the fused path ({what})")
     run2 = step.fused(pixels)
     for a, b in zip(run1["labels"], run2["labels"]):
         if not np.array_equal(a, b):
-            raise AssertionError("fused labels differ between runs")
+            raise AssertionError(f"fused labels differ between runs ({what})")
     for obj1, obj2 in zip(run1["features"], run2["features"]):
         for (n1, a1), (n2, a2) in zip(obj1, obj2):
             if n1 != n2 or not np.array_equal(a1, a2, equal_nan=True):
-                raise AssertionError("fused feature blocks differ between runs")
+                raise AssertionError(f"fused feature blocks differ between runs ({what})")
     for oi, (fused, seg) in enumerate(zip(run1["labels"], slice1_labels)):
         if fused.shape != (8, 256, 256) or not np.array_equal(fused, np.stack(seg)):
-            raise AssertionError(f"fused labels != segment_grouped labels (object {oi})")
+            raise AssertionError(f"fused labels != segment_grouped labels (object {oi}, {what})")
     shapes = [[a.shape for _, a in o] for o in run1["features"]]
-    if shapes != [[(158, 8, 64), (80, 8, 64)]] * 2 or step.fused.state != {"cap": 64, "u8": True}:
-        raise AssertionError(f"fused feature shapes {shapes}, state {step.fused.state}")
+    if shapes != [[(n, 8, 64) for n in rows]] * 2 or step.fused.state != {"cap": 64, "u8": True}:
+        raise AssertionError(f"fused feature shapes {shapes}, state {step.fused.state} ({what})")
     columns = set()
     for ti, (names, arr) in enumerate(run1["features"][0]):
         res = results_from_fused(step.fused.plans[0][ti], names, arr, run1["labels"][0])
         columns |= set(res.columns()) - {"tile", "label"}
-    with open(os.path.join(ROOT, "tests", "golden", "example01_columns.txt")) as f:
+    with open(os.path.join(ROOT, "tests", "golden", golden_file)) as f:
         golden = {c for c in f.read().splitlines() if c and not c.startswith("metadata_")}
     if columns != golden:
-        raise AssertionError(f"column set != golden anchor: {len(columns)} vs {len(golden)}, "
-                             f"missing {sorted(golden - columns)[:5]}, extra {sorted(columns - golden)[:5]}")
-    log(f"[fused] labels equal to segment_grouped's; labels and feature block identical across "
-        f"runs; {len(columns)} columns = the golden example-01 anchor minus its 4 metadata columns; "
-        f"feature blocks {shapes[0]} per object, state {step.fused.state}")
+        raise AssertionError(f"column set != golden anchor {golden_file}: {len(columns)} vs "
+                             f"{len(golden)}, missing {sorted(golden - columns)[:5]}, "
+                             f"extra {sorted(columns - golden)[:5]}")
+    log(f"[fused] {what}: labels equal to segment_grouped's; labels and feature block identical "
+        f"across runs; {len(columns)} columns = the golden anchor {golden_file} (metadata columns "
+        f"apart); feature blocks {shapes[0]} per object, state {step.fused.state}")
 
-    ms = host_ms(lambda: step.fused(pixels))
-    log(f"[fused] steady state: {ms:.1f} ms per step = {8e3 / ms:.2f} fields/s (8 fields x 2 objects)")
+    ms = host_ms(lambda: step.fused(pixels), reps=reps)
+    log(f"[fused] {what} steady state: {ms:.1f} ms per step = {8e3 / ms:.2f} fields/s "
+        f"(8 fields x 2 objects)")
     # try_compile's segmenters share the engine cache with dispatch_segmenter
-    fused_stage_breakdown(step, pixels, [dispatch_segmenter("cellpose", 0).engine])
-    device_share(lambda: step.fused(pixels), "one fused step")
-    log(f"[fused] peak device memory of one step: {peak_gb(lambda: step.fused(pixels)):.3f} GB")
-    recorded = {k: r.args for k, r in recorders.items()}
+    fused_stage_breakdown(step, pixels, [dispatch_segmenter("cellpose", 0).engine], reps=reps)
+    if profile:
+        device_share(lambda: step.fused(pixels), f"one fused step ({what})")
+    gb = peak_gb(lambda: step.fused(pixels))
+    log(f"[fused] {what}: peak device memory of one step {gb:.3f} GB")
+    recorded = {k: r.args for k, r in recorders.items() if r.args is not None}
     return step, recorded, launches, {"fields_per_s": 8e3 / ms, "step_ms": ms,
-                                      "first_ms": t_first * 1e3}
+                                      "first_ms": t_first * 1e3, "peak_gb": gb}
 
 
-def fused_wide_pass(step, big) -> dict:
+def fused_wide_pass(what: str, step, big) -> dict:
     """The 1080x1080 field overflows the cap of 64: the sticky wide pass."""
+    rows = FUSED_PATHS[what][1]
     t0 = time.perf_counter()
     gb = peak_gb(lambda: step.fused(big))
     t_big = time.perf_counter() - t0
     out = step.fused(big)
     shapes = [[a.shape for _, a in o] for o in out["features"]]
     lmax = [int(m.max()) for m in out["labels"]]
-    if (step.fused.state != {"cap": 256, "u8": True} or shapes != [[(158, 1, 256), (80, 1, 256)]] * 2
-            or not 64 < max(lmax) <= 255):
-        raise AssertionError(f"1080x1080 wide pass: state {step.fused.state}, shapes {shapes}, "
-                             f"objects {lmax}")
+    if (step.fused.state != {"cap": 256, "u8": True}
+            or shapes != [[(n, 1, 256) for n in rows]] * 2 or not 64 < max(lmax) <= 255):
+        raise AssertionError(f"1080x1080 wide pass ({what}): state {step.fused.state}, shapes "
+                             f"{shapes}, objects {lmax}")
     ms = host_ms(lambda: step.fused(big), reps=3)
-    log(f"[fused] 1080x1080 field: objects {lmax}, state {step.fused.state} (wide pass, uint8 "
-        f"kept), first call {t_big * 1e3:.1f} ms, steady {ms:.1f} ms, peak memory {gb:.3f} GB")
+    log(f"[fused] {what}, 1080x1080 field: objects {lmax}, state {step.fused.state} (wide pass, "
+        f"uint8 kept), first call {t_big * 1e3:.1f} ms, steady {ms:.1f} ms, peak memory {gb:.3f} GB")
     return {"field_1080_ms": ms, "field_1080_peak_gb": gb}
 
 
-def fused_gpu_vs_cpu(pixels) -> None:
+def fused_gpu_vs_cpu(what: str, pixels) -> None:
     """The f32 fused step on the card (TF32 off) against the port on the CPU.
 
     The CPU takes its per-bin sums in the card's order (``kernel_order_sums``),
@@ -747,7 +864,7 @@ def fused_gpu_vs_cpu(pixels) -> None:
     from aliby_tpu_torch.ops import segsum
 
     pipeline = build_pipeline_steps(
-        **EXAMPLE01, segmenter_extra_kwargs={"model_kwargs": {"dtype": torch.float32}})
+        **FUSED_PATHS[what][0], segmenter_extra_kwargs={"model_kwargs": {"dtype": torch.float32}})
     gpu = try_compile(pipeline).fused(pixels)
     plain = segsum.binned_sum_cols_batched_plain
     segsum.binned_sum_cols_batched_plain = functools.partial(kernel_order_sums, plain=plain)
@@ -759,11 +876,79 @@ def fused_gpu_vs_cpu(pixels) -> None:
         segsum.binned_sum_cols_batched_plain = plain
     fields = [f for f in range(pixels.shape[0]) if all(
         np.array_equal(g[f], c[f]) for g, c in zip(gpu["labels"], cpu["labels"]))]
-    log(f"[fused] f32 GPU vs CPU (CPU step {t_cpu:.1f} s, sums in the kernel's order): labels "
-        f"bit-equal on {len(fields)}/{pixels.shape[0]} fields; features compared there")
+    log(f"[fused] {what}, f32 GPU vs CPU (CPU step {t_cpu:.1f} s, sums in the kernel's order): "
+        f"labels bit-equal on {len(fields)}/{pixels.shape[0]} fields; features compared there")
     if len(fields) < pixels.shape[0] // 2:
-        raise AssertionError("f32 GPU/CPU labels differ on more than half the fields")
-    compare_features(gpu["features"], cpu["features"], fields, "sums in the kernel's order")
+        raise AssertionError(f"f32 GPU/CPU labels differ on more than half the fields ({what})")
+    compare_features(gpu["features"], cpu["features"], fields,
+                     f"{what}, sums in the kernel's order")
+
+
+def raster_checks(seg_labels, pixels, dev, cap: int = 64) -> None:
+    """The integer rasters and the circles that decide which pixels a
+    feature sums, on the card against the CPU, on the segmentation's own
+    labels: texture's gray levels, the radial distribution's most interior
+    pixel, rings and wedges (pixels on the 8 rays sit exactly on a wedge
+    edge), and the minimum enclosing circle. All must have the same bits."""
+    from aliby_tpu_torch.extract import reductions, texture
+    from aliby_tpu_torch.ops.edt import edt_to_other_label
+
+    labels = torch.from_numpy(np.concatenate([np.stack(m) for m in seg_labels]).astype(np.int32))
+    img = torch.from_numpy(np.concatenate([pixels[:, 1, 0]] * len(seg_labels)))
+    got = {}
+    for d in (torch.device("cpu"), dev):
+        lab, im = labels.to(d), img.to(d)
+        _, ring, wedge = texture._rings_and_wedges(lab, cap, 4, 8)
+        first = texture._most_interior_pixel(lab, edt_to_other_label(lab), cap)
+        present = reductions.counts(lab, cap) > 0
+        circle = torch.stack(reductions.minimum_enclosing_circle(lab, cap))
+        zero = torch.zeros((), dtype=torch.int32, device=d)
+        got[d.type] = [torch.where(lab > 0, a, zero).cpu()
+                       for a in (texture.quantize(lab, im, cap), ring, wedge)]
+        got[d.type] += [torch.where(present, first, 0).cpu(),
+                        torch.where(present, circle, torch.zeros((), device=d)).cpu()]
+    names = ("gray levels", "rings", "wedges", "most interior pixel", "minimum enclosing circle")
+    for name, c, g in zip(names, got["cpu"], got["cuda"]):
+        if not torch.equal(c, g):
+            raise AssertionError(f"{name}: the card and the CPU differ on "
+                                 f"{int((c != g).sum())} of {c.numel()} values")
+    n_obj = int((got["cpu"][4][2] > 0).sum())
+    log(f"[rasters] {tuple(labels.shape)} label maps, {n_obj} objects: " + ", ".join(names)
+        + " have the same bits on the card and the CPU")
+
+
+def segment_sum_row(rng, dev, launches: int) -> dict:
+    """``segment_sum_matmul`` at the shape the JAX package verifies it at.
+    ``launches`` is its counter as read after the default-bank step's
+    counted run (no production path calls it, so that run leaves it at 0)."""
+    from aliby_tpu_torch.ops import segsum
+
+    N, K, max_labels = SEGMENT_SUM_SHAPE
+    v, lab = segment_sum_inputs(rng, N, K, max_labels, dev)
+    valid = (lab >= 1) & (lab <= max_labels)
+    idx = torch.where(valid, lab - 1, max_labels).to(torch.int64)
+    acc = torch.zeros(max_labels + 1, K, device=dev)
+    got = segsum.segment_sum_matmul(v, lab, max_labels)
+    want = segsum.segment_sum_matmul_plain(v, lab, max_labels)
+    rel, ratio = check_segment_sums(got, want, v, lab, max_labels, "phase 4")
+    t_bytes = (N * (K + 1) * 4 + max_labels * K * 4) / PEAK_BYTES_S * 1e3
+    t_ops = N * K / PEAK_F32_OPS_S * 1e3
+    r = {
+        "name": "segment_sum_matmul", "route": "cuda",
+        "source": "aliby_tpu_torch/kernels/csrc/segsum.cu",
+        "replaces": REPLACES["segment_sum_matmul"], "launches": launches,
+        "max_abs_err": max_abs_err(got, want), "max_rel_err": rel, "max_err_over_bound": ratio,
+        "ms": cuda_ms(lambda: segsum.segment_sum_matmul(v, lab, max_labels)),
+        "plain_ms": cuda_ms(lambda: segsum.segment_sum_matmul_plain(v, lab, max_labels)),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": cuda_ms(lambda: acc.index_add(0, idx, v)), "shape": [N, K, max_labels],
+        "note": "no production path calls it, here as in the JAX package; phases 2 and 4 run it",
+    }
+    log(f"[report] segment_sum_matmul {(N, K, max_labels)}: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), max abs err {r['max_abs_err']}, max rel err {rel:.3g}, max err / "
+        f"bound {ratio:.3g}, launches on the path {launches} (no path calls it)")
+    return r
 
 
 def main() -> int:
@@ -868,12 +1053,16 @@ def main() -> int:
     stage_breakdown(nuclei.engine, np.concatenate([nuclei.images(pixels), cell.images(pixels)]))
     device_share(lambda: segment_grouped([nuclei, cell], pixels))
 
-    # ------------------------------------------------------- 3 slice 2 (the fused step)
-    # the example-01 pipeline segments without a second channel
+    # ------------------------------------- 3 slices 2 and 3 (the fused step, two banks)
+    # build_pipeline_steps' pipelines segment without a second channel
     plain_seg = segment_grouped([dispatch_segmenter("cellpose", 0),
                                  dispatch_segmenter("cellpose", 3)], pixels)
-    step, fused_rec, fused_launches, fused_stats = fused_checks(pixels, plain_seg)
-    fused_stats.update(fused_wide_pass(step, big))
+    step, _, ex01_launches, ex01_stats = fused_checks("example-01", pixels, plain_seg, reps=3,
+                                                      profile=False)
+    ex01_stats.update(fused_wide_pass("example-01", step, big))
+    step, fused_rec, fused_launches, fused_stats = fused_checks("default bank", pixels, plain_seg,
+                                                                reps=5, profile=True)
+    fused_stats.update(fused_wide_pass("default bank", step, big))
 
     # -------------------------------------------------- 3 f32 on the card vs the CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -899,22 +1088,34 @@ def main() -> int:
                 raise AssertionError(f"GPU/CPU matched IoU {iou:.4f} < 0.99 (object {obj}, field {f})")
     log(f"[slice] f32 GPU vs CPU: object counts equal, worst matched IoU {worst:.6f}, "
         f"{n_equal}/16 label maps bit-equal")
-    fused_gpu_vs_cpu(pixels)
+    raster_checks(plain_seg, pixels, dev)
+    for what in FUSED_PATHS:
+        fused_gpu_vs_cpu(what, pixels)
 
     # --------------------------------------------------------------- 4 report
     log("[report] slice 1 (segmentation) kernels on its own inputs:")
     measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, recorders)}, launches)
     log("[report] the same, on the 1080x1080 field's inputs:")
     measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, big_recorders)}, big_launches)
-    log("[report] the fused step's kernels on its own inputs (launches: one fused step):")
+    log("[report] the default-bank step's kernels on its own inputs (launches: one step; the "
+        f"example-01 step launched {ex01_launches}):")
     rows = measure_kernels(fused_rec, fused_launches)
     log("[report] the costes histogram (binned_sum_cols_batched, 6 columns, "
         "(cap + 1) * 257 bins):")
-    binned_sum_row(*fused_rec["costes histogram"], fused_launches["binned_sum_cols_batched"])
+    n_sum = fused_launches["binned_sum_cols_batched"]
+    binned_sum_row(*fused_rec["costes histogram"], n_sum)
+    log("[report] the default bank's other shapes: a zernike entry's first column group, the "
+        "radial distribution's (label, ring) bins, texture's range, the per-channel lookup:")
+    binned_sum_row(*fused_rec["zernike group"], n_sum)
+    binned_sum_row(*fused_rec["radial rings"], n_sum)
+    measure_kernels({"binned_minmax_batched": fused_rec["texture range"],
+                     "table_lookup_batched": fused_rec["channel lookup"]}, fused_launches)
+    rows["segment_sum_matmul"] = segment_sum_row(np.random.default_rng(6), dev,
+                                                 fused_launches["segment_sum_matmul"])
 
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},
-                    "fused": fused_stats}))
+                    "fused example-01": ex01_stats, "fused default bank": fused_stats}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"kernels": [rows[name] for name in REPLACES]}), flush=True)

@@ -88,6 +88,51 @@ def test_binned_sum_kernel_columns_ride_independently(dev):
     assert torch.equal(wide[..., :3], narrow)
 
 
+@pytest.mark.parametrize("N,K,max_labels", [(16 * 65536, 16, 256), (62407, 16, 256),
+                                            (5000, 1, 1), (70000, 32, 1500)])
+def test_segment_sum_kernel(dev, N, K, max_labels):
+    """The unbatched per-label sums: counts exact, sums within rtol 1e-5 of
+    the plain version, the same bits on two runs, dropped labels add nothing."""
+    rng = np.random.default_rng(8)
+    vals = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32)).to(dev)
+    vals[:, -1] = 1.0
+    labels = torch.from_numpy(rng.integers(-2, max_labels + 3, N).astype(np.int32)).to(dev)
+    before = segsum.segment_sum_matmul.launches
+    got = segsum.segment_sum_matmul(vals, labels, max_labels)
+    assert segsum.segment_sum_matmul.launches == before + 1
+    want = segsum.segment_sum_matmul_plain(vals, labels, max_labels)
+    assert got.shape == (max_labels, K)
+    assert torch.equal(got, segsum.segment_sum_auto(vals, labels.to(torch.int64), max_labels))
+    assert torch.equal(got[:, -1], want[:, -1])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_segment_sum_kernel_non_finite_and_limits(dev):
+    vals = torch.ones(100, 2, device=dev)
+    vals[3, 0] = float("inf")
+    labels = (torch.arange(100, device=dev) % 4).to(torch.int32)
+    out = segsum.segment_sum_matmul(vals, labels, 3)
+    assert out[2, 0] == float("inf") and torch.isfinite(out[:2]).all() and out[2, 1] == 25
+    with pytest.raises(ValueError):
+        segsum.segment_sum_matmul(torch.ones(10, 33, device=dev), labels[:10], 3)
+
+
+def test_binned_sum_cols_groups_past_32_columns(dev):
+    """367 columns (the zernike pass's full width) go through the kernel in
+    12 groups; a column's bits do not depend on its group."""
+    rng = np.random.default_rng(9)
+    vals = torch.from_numpy(rng.normal(size=(2, 40000, 367)).astype(np.float32)).to(dev)
+    bins = torch.from_numpy(rng.integers(-1, 66, (2, 40000)).astype(np.int32)).to(dev)
+    before = segsum.binned_sum_cols_batched.launches
+    got = binned_sum_cols(vals, bins, 65)
+    assert segsum.binned_sum_cols_batched.launches == before + 12
+    want = segsum.binned_sum_cols_batched_plain(vals, bins, 65)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got[..., 40:50], binned_sum_cols(vals[..., 40:50].contiguous(), bins, 65))
+    with pytest.raises(ValueError):
+        segsum.binned_sum_cols_batched(vals, bins, 65)
+
+
 def _minmax_inputs(rng, B, N, K, n_bins, dev):
     vals = rng.normal(size=(B, N, K)).astype(np.float32)
     vals[rng.random((B, N, K)) < 1e-4] = np.nan

@@ -10,6 +10,14 @@ once; XLA:CPU's f32 cos/sin differ in the last bit at a few angles, which
 moves a projection by up to one ulp of the direction times a coordinate of
 at most 96 px). Central moments and the
 ellipse: rtol 1e-6 (XLA:CPU fuses and reorders a few f32 products).
+
+The minimum enclosing circle is held to the exact circle of the numpy
+oracle (``oracle_features.o_minimum_enclosing_circle``): centre atol 1e-4
+px, radius rtol 1e-5. Against the reference: the same where the reference
+finds that circle; where its f32 search rejects it (the enclosure test
+allows 1e-6 of r^2, f32 misses by ~1e-5 at coordinates near 100) the
+reference's radius must be the larger one. Column sums past 32 columns:
+bit-equal, column by column, to the ungrouped plain sum.
 """
 
 import jax
@@ -21,6 +29,8 @@ import torch
 from aliby_tpu.extract import reductions as R
 from aliby_tpu.test_data import render_cells, render_dense_cells
 from aliby_tpu_torch.extract import reductions as T
+
+from oracle_features import o_minimum_enclosing_circle
 
 torch.set_num_threads(1)
 ML = 32
@@ -133,3 +143,78 @@ def test_counts_and_sums(labels):
     np.testing.assert_allclose(T.seg_sum_cols(torch.from_numpy(v), lab, ML).numpy(),
                                np.asarray(_vmap(lambda a, l: R.seg_sum_cols(a, l, ML), v, labels)),
                                rtol=1e-5, atol=1e-5)
+
+
+def _symmetric_objects():
+    """Objects whose farthest endpoints tie: a disk, a square, a line, one
+    pixel, a rectangle."""
+    lab = np.zeros((96, 96), np.int32)
+    yy, xx = np.mgrid[0:96, 0:96]
+    lab[(yy - 20) ** 2 + (xx - 20) ** 2 <= 100] = 1
+    lab[30:50, 60:80] = 2
+    lab[60:61, 10:40] = 3
+    lab[70, 70] = 4
+    lab[80:90, 20:25] = 5
+    return lab
+
+
+def test_minimum_enclosing_circle(labels):
+    lab = np.concatenate([labels, _symmetric_objects()[None]])
+    got = [a.numpy() for a in T.minimum_enclosing_circle(torch.from_numpy(lab), ML)]
+    want = [np.asarray(a) for a in _vmap(lambda l: R.minimum_enclosing_circle(l, ML), lab)]
+    n_obj = n_reference_misses = 0
+    for b in range(lab.shape[0]):
+        for k in range(1, lab[b].max() + 1):
+            if not (lab[b] == k).any():
+                continue
+            n_obj += 1
+            cy, cx, r = o_minimum_enclosing_circle(lab[b] == k)
+            g = [a[b, k - 1] for a in got]
+            np.testing.assert_allclose(g[:2], [cy, cx], rtol=0, atol=1e-4)
+            np.testing.assert_allclose(g[2], r, rtol=1e-5, atol=1e-6)
+            w = [a[b, k - 1] for a in want]
+            if abs(w[2] - r) <= 1e-5 * r:
+                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-4)
+            else:
+                n_reference_misses += 1
+                assert w[2] > g[2]
+    assert n_obj >= 30 and n_reference_misses <= n_obj // 4
+    # the symmetric objects: exact centres and radii
+    np.testing.assert_array_equal(got[0][2, :5], [20.0, 39.5, 60.0, 70.0, 84.5])
+    np.testing.assert_array_equal(got[1][2, :5], [20.0, 69.5, 24.5, 70.0, 22.0])
+    np.testing.assert_array_equal(got[2][2, [0, 2, 3]], [10.0, 14.5, 0.0])
+
+
+@pytest.mark.parametrize("K", [31, 32, 63, 367])
+def test_column_groups_keep_every_bit(labels, K):
+    """Past 31 columns ``binned_sum_cols`` sums in groups of 31 beside one
+    shared indicator column: each column's sum is the bits of the plain sum
+    of that column alone, and a non-finite value anywhere makes NaN in all
+    K columns of its bin."""
+    from aliby_tpu_torch.ops.segsum import binned_sum_cols_batched_plain
+
+    rng = np.random.default_rng(K)
+    lab = torch.from_numpy(labels[:, :48, :48].copy())
+    vals = torch.from_numpy(rng.normal(0, 3, (2, 48, 48, K)).astype(np.float32))
+    got = T.binned_sum_cols(vals, lab, ML + 1)
+    assert got.shape == (2, ML + 1, K)
+    for k in (0, 30, 31, K // 2, K - 1):
+        if k < K:
+            alone = binned_sum_cols_batched_plain(vals[..., k:k + 1].contiguous(), lab, ML + 1)
+            assert torch.equal(got[..., k], alone[..., 0])
+    y, x = np.argwhere(labels[1, :48, :48] > 0)[0]
+    hit = int(labels[1, y, x])
+    vals[1, y, x, K - 1] = float("inf")
+    poisoned = T.binned_sum_cols(vals, lab, ML + 1)
+    assert torch.isnan(poisoned[1, hit]).all() and torch.isnan(poisoned).sum() == K
+    keep = torch.ones(2, ML + 1, dtype=torch.bool)
+    keep[1, hit] = False
+    assert torch.equal(poisoned[keep], got[keep])
+    np.testing.assert_array_equal(
+        T.seg_sum_cols(vals, lab, ML).numpy(), poisoned[:, 1:].numpy())
+
+
+def test_no_columns_is_an_error(labels):
+    lab = torch.from_numpy(labels[:, :48, :48].copy())
+    with pytest.raises(ValueError, match="at least one column"):
+        T.binned_sum_cols(torch.zeros(2, 48, 48, 0), lab, ML + 1)

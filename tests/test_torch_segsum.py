@@ -1,5 +1,6 @@
-"""Port parity: the batched per-bin reductions of ``aliby_tpu_torch.ops.segsum``
-(sums, min/max, table lookup) and ``extract.reductions.binned_sum_cols``.
+"""Port parity: the per-bin reductions of ``aliby_tpu_torch.ops.segsum``
+(batched sums, min/max, table lookup; the unbatched ``segment_sum_matmul``)
+and ``extract.reductions.binned_sum_cols``.
 
 Tolerance: sums: counts exact, rtol 1e-5 (f32 sums taken in another order);
 min/max and lookup: exact (equal values and equal NaN positions).
@@ -13,6 +14,13 @@ port follows the kernel path on every device (pinned below).
 Bins outside [0, n_bins) add nothing, as in the Pallas kernel; the JAX
 package's CPU scatter wraps a negative bin to n_bins + bin instead (the
 segmentation path never makes one).
+
+``segment_sum_matmul``: against ``segment_sum_auto`` of the JAX package (the
+Pallas kernel in interpreter mode) at rtol 1e-4, atol 1e-3, the tolerance of
+``tests/test_ops_labels.py``; labels outside [1, max_labels] add nothing on
+both sides. A non-finite value: the reference's one-hot matmul multiplies it
+by 0 for every other label, so the whole column is NaN for every label; the
+port adds it to its own label only (pinned below).
 
 Non-finite values: the JAX package's CPU scatter path gives ``+inf`` for an
 ``+inf`` input while its TPU kernel path (``_binned_sum_kernel_call``)
@@ -30,6 +38,7 @@ import torch
 from aliby_tpu.extract import reductions as R
 from aliby_tpu.ops.pallas_segsum import binned_minmax_batched as jax_binned_minmax
 from aliby_tpu.ops.pallas_segsum import binned_sum_cols_batched as jax_binned_sum
+from aliby_tpu.ops.pallas_segsum import segment_sum_auto as jax_segment_sum_auto
 from aliby_tpu.ops.pallas_segsum import table_lookup_batched as jax_table_lookup
 from aliby_tpu_torch.extract.reductions import binned_sum_cols
 from aliby_tpu_torch.ops import segsum
@@ -209,3 +218,48 @@ def test_table_lookup_infinities_follow_the_kernel_path():
     finite = np.isfinite(gather) | np.isnan(gather)
     _equal_with_nan(got[finite], gather[finite])
     assert np.isnan(got[~finite]).all()
+
+
+def _segment_inputs(N, K, max_labels, seed):
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(0, 2, (N, K)).astype(np.float32)
+    vals[:, -1] = 1.0  # its sums are counts
+    labels = rng.integers(-2, max_labels + 3, N).astype(np.int32)  # some dropped
+    return vals, labels
+
+
+@pytest.mark.parametrize("N,K,max_labels", [(3000, 16, 24), (5000, 3, 256), (2049, 1, 1)])
+def test_segment_sum_matmul_matches_pallas_kernel(N, K, max_labels):
+    vals, labels = _segment_inputs(N, K, max_labels, seed=N)
+    assert (labels <= 0).any() and (labels > max_labels).any()
+    want = np.asarray(jax_segment_sum_auto(jnp.asarray(vals), jnp.asarray(labels), max_labels))
+    for fn in (segsum.segment_sum_matmul_plain, segsum.segment_sum_matmul, segsum.segment_sum_auto):
+        got = fn(torch.from_numpy(vals), torch.from_numpy(labels), max_labels)
+        assert got.shape == (max_labels, K) and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy()[:, -1], want[:, -1])  # counts exact
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+    # as per-label sums of the image-shaped form, int64 labels
+    img = segsum.segment_sum_matmul(torch.from_numpy(vals).reshape(-1, 1, K),
+                                    torch.from_numpy(labels).to(torch.int64).reshape(-1, 1),
+                                    max_labels)
+    assert torch.equal(img, got)
+
+
+def test_segment_sum_matmul_non_finite_stays_in_its_label():
+    vals, labels = _segment_inputs(2048, 2, 8, seed=1)
+    labels = np.clip(labels, 0, 8)
+    vals[5, 0], labels[5] = np.inf, 3
+    vals[9, 0], labels[9] = np.nan, 6
+    want = np.asarray(jax_segment_sum_auto(jnp.asarray(vals), jnp.asarray(labels), 8))
+    got = segsum.segment_sum_matmul(torch.from_numpy(vals), torch.from_numpy(labels), 8).numpy()
+    assert np.isnan(want[:, 0]).all()  # the matmul's 0 x inf: every label of the column
+    assert got[2, 0] == np.inf and np.isnan(got[5, 0])
+    assert np.isfinite(np.delete(got[:, 0], [2, 5])).all()
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-4, atol=1e-3)
+
+
+def test_segment_sum_matmul_validation():
+    with pytest.raises(ValueError):
+        segsum.segment_sum_matmul(torch.zeros(7, 2), torch.zeros(4, dtype=torch.int32), 3)
+    with pytest.raises(TypeError):
+        segsum.segment_sum_matmul(torch.zeros(4, 2), torch.zeros(4), 3)
