@@ -39,8 +39,8 @@ PROTOTYPES = {
         "diffuse_step": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "segsum": {
-        "binned_sum_cols": (_P, _P, _P, _P, _I, _L, _I, _I, _L, _P),
-        "segment_sum": (_P, _P, _P, _P, _L, _I, _I, _L, _P),
+        "binned_sum_cols": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _P),
+        "segment_sum": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _P),
         "binned_minmax": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P),
         "table_lookup": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
     },

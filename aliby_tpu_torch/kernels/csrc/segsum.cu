@@ -5,36 +5,71 @@
 // binned_sum_cols_batched (_sum_kernel): (B, N, K) f32 values and (B, N)
 // int32 bins -> (B, n_bins, K) per-bin sums, K <= 32; bins outside
 // [0, n_bins) add nothing. The TPU kernel multiplies a one-hot tile by the
-// values on the MXU (in three bf16 pieces for f32 fidelity). Here the sums
-// are plain f32 adds, and the result is deterministic: no atomics anywhere.
-//
-// Pass 1 (grid: pixel chunks x images): a block stages a tile of its chunk
-// (bins and K values) in shared memory; each thread owns one bin and walks
-// the staged pixels in order, adding the values whose bin is its own (a
-// broadcast read of the shared bin for the whole warp). Its per-bin sums
-// for the chunk go to a partial buffer. Pass 2 sums the partials of each
-// (image, bin, column) over the chunks in chunk order. So every sum is taken
-// in a fixed order, and two runs on the same input give the same bits (the
-// mask-QC test err > flow_threshold cannot flip between runs). The order
-// does not depend on K or on the staged tile's length, so a column's sum is
-// the same bits whatever columns ride beside it. Counts stay exact below
-// 2^24. Bound on the H100: device-memory bytes (one read of values and
-// bins); the compares cost n_bins/blockDim passes over the staged pixels,
-// which is why one block covers up to 1024 bins at once.
+// values on the MXU (in three bf16 pieces for f32 fidelity).
 //
 // segment_sum replaces pallas_segsum.py segment_sum_matmul (_kernel): the
 // unbatched form, (N, K) f32 values and (N,) int32 labels -> (max_labels, K)
 // per-label sums, K <= 32; label 0, negative labels and labels above
 // max_labels add nothing. The TPU kernel accumulates onehot[P, L]^T @
-// values[P, K] per 2048-pixel tile on the MXU, one grid step after another.
-// Here the grid runs over the pixel chunks of the one array, in parallel:
-// each thread owns one label (1..max_labels; there is no background row),
-// walks its block's staged pixels in order (the same device code as pass 1
-// above), and writes its chunk sums to a partial buffer that pass 2 adds in
-// chunk order. No atomics: two runs give the same bits. A non-finite value
+// values[P, K] per 2048-pixel tile on the MXU. Here it is the sum kernel
+// with B = 1 and bin = label - 1 (`shift` below), so a non-finite value
 // reaches only its own label's sum, by IEEE addition (the matmul's 0 x inf
-// made the whole column NaN for every label). Bound: device-memory bytes
-// (one read of values and labels).
+// made the whole column NaN for every label).
+//
+// Summation order, kept bit for bit from the port's first sum kernel: for
+// every (image, bin, column) a left fold with __fadd_rn from +0.0 over the
+// bin's pixels of each CHUNK = 4096-pixel chunk, in pixel order; then a left
+// fold from +0.0 of those chunk sums, in chunk order. The order depends on
+// N, the bins and CHUNK only, not on K, on the other columns or on n_bins,
+// so two runs give the same bits (the mask-QC test err > flow_threshold
+// cannot flip), a column's bits do not depend on the columns beside it, and
+// the CPU reproduces the kernel exactly (ops/segsum.py
+// binned_sum_cols_batched_chunked: index_add_ per chunk, which adds in
+// index order on the CPU). A chunk in which a bin has no pixel is skipped in
+// the second fold: that changes no bit, because neither fold can make -0.0
+// (a fold from +0.0 under round-to-nearest never yields -0.0), so the absent
+// chunk's +0.0 is the identity (x + +0.0 == x for every x but -0.0; NaN
+// stays NaN, +-inf stays +-inf). No float atomics anywhere.
+//
+// Design. The first kernel, a thread per bin that scanned every staged
+// pixel of its chunk, did n_bins x N compares (17 scans of each chunk at the
+// costes histogram's 16,705 bins), left the card idle at few bins (96
+// threads a block at 65 bins, a dependent 4,096-step loop each), and wrote
+// a dense partial of B x n_chunks x n_bins x K floats, almost all zeros
+// (102.6 MB at 16,705 bins). Now the work follows the pixels:
+//
+// Pass 1 (chunk_runs_kernel; grid: chunks x images, 1024 threads, 4 pixels
+// a thread). The block sorts its chunk's pixels by bin with a stable LSD
+// radix sort, two bits a pass (a block scan of the four digit counts, then
+// each pixel to its place), over as many bits as n_bins has; a dropped pixel
+// takes bin n_bins and sorts last. Stability keeps each bin's pixels in
+// pixel order: each bin is one run, in the summation order above. A block
+// scan numbers the runs. The values are staged in sorted order, up to 12
+// columns at a time (4,096 x 12 x 4 B of opt-in dynamic shared memory; the
+// chunk's lines are prefetched into L2 during the sort), so that each
+// (run, column) task folds a contiguous column, 32 values a step from
+// 16-byte loads issued before the step's adds. Each run writes one row of K
+// sums into the chunk's own region of min(4,096, n_bins) rows and counts
+// itself in its (image, bin) with an integer atomic.
+// Pass 2. alloc_kernel hands each non-empty (image, bin) a segment of
+// `entries` of its count (warp-aggregated integer atomics; the segments may
+// land in any order) and lists it; scatter_kernel puts each run's row index
+// into its bin's segment (in any order). combine_kernel, a warp per listed
+// bin, ranks the rows by chunk with a bitmap of the chunks (a prefix count
+// of its bits), and folds the rows in that order, a lane per column. Bins
+// that no pixel reaches keep the +0.0 of a memset. Every pass runs the same
+// code whatever K, n_bins or the data: only the number of loop steps
+// changes (column groups, radix passes, 1,024-chunk windows).
+// Work: bit-length(n_bins) / 2 scan passes per chunk and N x K adds, never
+// n_bins x N. Scratch (allocated by the wrapper, ops/segsum.py
+// sum_scratch_sizes), with rows = B x n_chunks x min(4,096, n_bins), at
+// most B x (N + 4,095) and at most the first kernel's B x n_chunks x
+// n_bins: rows x K floats, 2 x rows + B x n_chunks ints, 2 x B x n_bins + 2
+// ints and min(B x n_bins, rows) int64. Bound on the H100: device-memory bytes (one read of the
+// values and bins, one write of the sums). What bounds a block: the sort's
+// barriers, the staging of each column group (device-memory bound across a
+// wave of blocks) and the longest run's dependent add chain (up to 4,096
+// adds at the add latency) once per group.
 //
 // binned_minmax replaces pallas_segsum.py binned_minmax_batched
 // (_minmax_kernel): (B, N, K) f32 values, (B, N) int32 bins -> per-bin min
@@ -69,102 +104,331 @@ constexpr int kMaxK = 32;
 constexpr int32_t kPosInfKey = 0x7f800000;  // key of +inf
 constexpr int32_t kNegInfKey = (int32_t)0x807fffff;  // key of -inf
 
-// pixels staged in shared memory at a time: (K + 1) * stage * 4 <= 36 KB
-inline int stage_for(int K) { return K <= 8 ? 1024 : (K <= 16 ? 512 : 256); }
+constexpr int kChunk = 4096;  // pixels per chunk: fixes the summation order
+constexpr int kSumThreads = 1024;  // 4 pixels a thread
+constexpr int kStage = 12;  // value columns staged in shared memory at most
+constexpr int kValStride = kChunk + 4;  // floats per staged column (16-byte rows, spread banks)
+// shared memory of chunk_runs_kernel: sorted bins, then the run starts
+// (kValStride ints), sorted local indices (kChunk), the scans (128), the
+// staged columns (kValStride floats each)
+constexpr int kHeadBytes = (kValStride + kChunk + 128) * 4;
+constexpr int kSumSmemMax = kHeadBytes + kStage * kValStride * 4;
 
-// The sums of the pixels [start, end) whose bin is `mine`, K columns, taken
-// in pixel order through a staged tile; every thread of the block must call.
-template <int KB>
-__device__ __forceinline__ void chunk_sums(const float* __restrict__ v,
-                                           const int32_t* __restrict__ bb, int64_t start,
-                                           int64_t end, int K, int mine, int stage,
-                                           int32_t* s_bins, float* s_vals, float (&acc)[KB]) {
+// The scratch of the sum kernels; the wrapper allocates it (sizes in
+// ops/segsum.py sum_scratch_sizes). A chunk has at most P = min(kChunk,
+// n_bins) runs; row (b * n_chunks + c) * P + r holds run r of chunk c of
+// image b.
+struct SumScratch {
+  float* run_sums;  // rows * K: each run's K chunk sums
+  int32_t* run_bin;  // rows: each run's bin; the combine pass's ranked rows
+  int32_t* entries;  // rows: the rows, bin by bin
+  int32_t* run_count;  // B * n_chunks: runs per chunk
+  int32_t* counters;  // 2 + B * n_bins: rows handed out, bins listed, then
+                      // each bin's run count, turned into its cursor
+  int32_t* offsets;  // B * n_bins: each listed bin's segment of entries
+  int64_t* listed;  // min(B * n_bins, B * N): the non-empty (image, bin)s
+};
+
+// Columns [k0, k0 + gc) of the chunk's n_valid sorted pixels into s_val,
+// column g at s_val[g * kValStride + j] for sorted position j.
+__device__ __forceinline__ void stage_sorted(const float* __restrict__ v, int K, int k0, int gc,
+                                             int n_valid, const int32_t* s_idx, float* s_val) {
+  const int total = n_valid * gc;
+  const int step = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < total; e0 += 8 * step) {
+    float x[8];
+    int at[8];
 #pragma unroll
-  for (int k = 0; k < KB; ++k) acc[k] = 0.0f;
-  for (int64_t t0 = start; t0 < end; t0 += stage) {
-    const int len = (int)(end - t0 < stage ? end - t0 : stage);
-    __syncthreads();
-    for (int i = threadIdx.x; i < len; i += blockDim.x) s_bins[i] = bb[t0 + i];
-    for (int i = threadIdx.x; i < len * K; i += blockDim.x) s_vals[i] = v[t0 * K + i];
-    __syncthreads();
-    for (int i = 0; i < len; ++i) {
-      if (s_bins[i] == mine) {
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * step, j = e / gc, g = e - j * gc;
+      at[u] = e < total ? g * kValStride + j : -1;
+      x[u] = e < total ? v[(int64_t)s_idx[j] * K + k0 + g] : 0.0f;
+    }
 #pragma unroll
-        for (int k = 0; k < KB; ++k)
-          if (k < K) acc[k] = __fadd_rn(acc[k], s_vals[i * K + k]);
+    for (int u = 0; u < 8; ++u)
+      if (at[u] >= 0) s_val[at[u]] = x[u];
+  }
+}
+
+__device__ __forceinline__ float add4(float acc, float4 x) {
+  acc = __fadd_rn(acc, x.x);
+  acc = __fadd_rn(acc, x.y);
+  acc = __fadd_rn(acc, x.z);
+  return __fadd_rn(acc, x.w);
+}
+
+// The left fold from +0.0 of col[j0 .. j1): 32 values a step from eight
+// 16-byte loads issued before the step's adds.
+__device__ __forceinline__ float fold(const float* col, int j0, int j1) {
+  float acc = 0.0f;
+  int j = j0;
+  for (; j < j1 && (j & 3); ++j) acc = __fadd_rn(acc, col[j]);
+  const float4* p = reinterpret_cast<const float4*>(col + j);
+  const int nq = (j1 - j) >> 2;
+  int q = 0;
+  for (; q + 8 <= nq; q += 8) {
+    float4 x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x[u] = p[q + u];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = add4(acc, x[u]);
+  }
+  for (; q < nq; ++q) acc = add4(acc, p[q]);
+  for (j += 4 * nq; j < j1; ++j) acc = __fadd_rn(acc, col[j]);
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_inclusive_sum(T x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+// Exclusive prefix of x over the block's threads (32 warps) and the total;
+// s_scan holds 64 elements. Every thread must call; it ends past a barrier.
+template <typename T>
+__device__ __forceinline__ T block_exclusive_sum(T x, T* total, T* s_scan) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T incl = warp_inclusive_sum(x, lane);
+  if (lane == 31) s_scan[warp] = incl;
+  __syncthreads();
+  if (warp == 0) s_scan[32 + lane] = warp_inclusive_sum(s_scan[lane], lane);
+  __syncthreads();
+  *total = s_scan[63];
+  return (warp ? s_scan[32 + warp - 1] : T(0)) + incl - x;
+}
+
+// Pass 1: a block per (chunk, image); blockDim.x == kSumThreads. A pixel's
+// bin is bins[p] - shift; those outside [0, n_bins) are dropped.
+__global__ void __launch_bounds__(kSumThreads)
+chunk_runs_kernel(const float* __restrict__ vals, const int32_t* __restrict__ bins, int64_t N,
+                  int K, int64_t n_bins, int shift, int n_chunks, int P, int G, SumScratch s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // the sorted bins; once the runs are found, the first sorted position of
+  // each run (R + 1 entries)
+  uint32_t* s_bin = reinterpret_cast<uint32_t*>(smem);
+  int32_t* s_start = reinterpret_cast<int32_t*>(smem);
+  int32_t* s_idx = reinterpret_cast<int32_t*>(smem + kValStride * 4);  // sorted local indices
+  int32_t* s_scan = s_idx + kChunk;  // 128 ints, or 64 64-bit counters
+  unsigned long long* s_scan64 = reinterpret_cast<unsigned long long*>(s_scan);
+  float* s_val = reinterpret_cast<float*>(smem + kHeadBytes);
+
+  const int b = blockIdx.y, c = blockIdx.x, tid = threadIdx.x;
+  const int64_t start = (int64_t)c * kChunk;
+  const int len = (int)(N - start < kChunk ? N - start : kChunk);
+  const int64_t pix0 = (int64_t)b * N + start;  // this chunk's pixels
+  const int64_t row0 = ((int64_t)b * n_chunks + c) * P;  // and its run rows
+  const float* v = vals + pix0 * K;
+  const int32_t* bb = bins + pix0;
+
+  // bring the chunk's values towards L2 while the bins sort
+  const char* vbytes = reinterpret_cast<const char*>(v);
+  for (int64_t o = (int64_t)tid * 128; o < (int64_t)len * K * 4; o += (int64_t)blockDim.x * 128)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(vbytes + o));
+
+  // Stable LSD radix sort of the chunk by bin, two bits a pass (each digit's
+  // pixels keep their order), over as many bits as n_bins has; a dropped
+  // pixel's bin is n_bins, so it sorts last. Thread t holds positions
+  // 4t .. 4t + 3 of the current order. The four digit counts of a pass ride
+  // in one 64-bit word, 16 bits each (a count is at most 4,096).
+  uint32_t bin[4];
+  int32_t idx[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int p = 4 * tid + u;
+    bin[u] = (uint32_t)n_bins;
+    if (p < len) {
+      const int64_t x = (int64_t)bb[p] - shift;
+      if (x >= 0 && x < n_bins) bin[u] = (uint32_t)x;
+    }
+    idx[u] = p;
+  }
+  const int n_bits = 32 - __clz((uint32_t)n_bins);
+  for (int bit = 0; bit < n_bits; bit += 2) {
+    unsigned long long mine = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mine += 1ull << (16 * ((bin[u] >> bit) & 3));
+    unsigned long long total;
+    unsigned long long before = block_exclusive_sum(mine, &total, s_scan64);
+    // each digit's first place: the counts of the digits below it
+    const unsigned long long base = (total << 16) + (total << 32) + (total << 48);
+    before += base;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int shift16 = 16 * ((bin[u] >> bit) & 3);
+      const int dst = (int)((before >> shift16) & 0xffff);
+      before += 1ull << shift16;
+      s_bin[dst] = bin[u];
+      s_idx[dst] = idx[u];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      bin[u] = s_bin[4 * tid + u];
+      idx[u] = s_idx[4 * tid + u];
+    }
+  }
+
+  // run heads; a pixel is valid when its bin is below n_bins
+  const int j0 = tid * 4;
+  uint32_t prev = j0 ? s_bin[j0 - 1] : (uint32_t)n_bins;
+  int heads = 0, n_valid = 0;
+  bool head[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const bool valid = bin[u] < (uint32_t)n_bins;
+    head[u] = valid && (j0 + u == 0 || prev != bin[u]);
+    heads += head[u];
+    n_valid += valid;
+    prev = bin[u];
+  }
+  int R, n_valid_all;
+  int r = block_exclusive_sum(heads, &R, s_scan);  // past a barrier: s_bin may be overwritten
+  block_exclusive_sum(n_valid, &n_valid_all, s_scan + 64);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (head[u]) {
+      s_start[r] = j0 + u;
+      s.run_bin[row0 + r] = (int32_t)bin[u];
+      atomicAdd(&s.counters[2 + (int64_t)b * n_bins + bin[u]], 1);
+      ++r;
+    }
+  }
+  if (tid == 0) {
+    s_start[R] = n_valid_all;
+    s.run_count[(int64_t)b * n_chunks + c] = R;
+  }
+  __syncthreads();
+
+  // each (run, column) task folds its run in sorted (= pixel) order
+  for (int k0 = 0; k0 < K; k0 += G) {
+    const int gc = K - k0 < G ? K - k0 : G;
+    if (k0) __syncthreads();
+    stage_sorted(v, K, k0, gc, n_valid_all, s_idx, s_val);
+    __syncthreads();
+    for (int t = tid; t < R * gc; t += blockDim.x) {
+      const int run = t / gc, g = t - run * gc;
+      s.run_sums[(row0 + run) * K + k0 + g] =
+          fold(s_val + g * kValStride, s_start[run], s_start[run + 1]);
+    }
+  }
+}
+
+// Pass 2a: a segment of `entries` for each non-empty (image, bin), and the
+// list of those bins. A warp's bins take consecutive segments.
+__global__ void alloc_kernel(SumScratch s, int64_t n_cells) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane; i0 < n_cells;
+       i0 += stride) {
+    const int64_t i = i0 + lane;
+    const int n = i < n_cells ? s.counters[2 + i] : 0;
+    const int incl = warp_inclusive_sum(n, lane);
+    const unsigned busy = __ballot_sync(0xffffffffu, n > 0);
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    int base = 0, lbase = 0;
+    if (lane == 0 && busy) {
+      base = atomicAdd(&s.counters[0], total);
+      lbase = atomicAdd(&s.counters[1], __popc(busy));
+    }
+    base = __shfl_sync(0xffffffffu, base, 0);
+    lbase = __shfl_sync(0xffffffffu, lbase, 0);
+    if (n > 0) {
+      const int off = base + incl - n;
+      s.offsets[i] = off;
+      s.counters[2 + i] = off;  // the scatter's cursor
+      s.listed[lbase + __popc(busy & ((1u << lane) - 1u))] = i;
+    }
+  }
+}
+
+// Pass 2b: each run's row into its bin's segment, in any order.
+__global__ void scatter_kernel(SumScratch s, int64_t n_bins, int n_chunks, int P) {
+  const int b = blockIdx.y, c = blockIdx.x;
+  const int R = s.run_count[(int64_t)b * n_chunks + c];
+  const int64_t row0 = ((int64_t)b * n_chunks + c) * P;
+  for (int r = threadIdx.x; r < R; r += blockDim.x) {
+    const int64_t cell = (int64_t)b * n_bins + s.run_bin[row0 + r];
+    const int pos = atomicAdd(&s.counters[2 + cell], 1);
+    s.entries[pos] = (int32_t)(row0 + r);
+  }
+}
+
+// Pass 2c: a warp per listed (image, bin); blockDim.x == kCombineThreads.
+// A row's chunk is row / P - b * n_chunks; the chunks of a bin's rows are
+// distinct, and a row's rank among them is its place in the second fold.
+// The ranks come from a bitmap of the chunks, 1,024 chunks a window (a
+// word a lane), and a prefix count of its bits. Lane k folds column k.
+constexpr int kCombineThreads = 64;
+
+__global__ void __launch_bounds__(kCombineThreads)
+combine_kernel(SumScratch s, float* __restrict__ out, int K, int64_t n_bins, int n_chunks,
+               int P) {
+  __shared__ uint32_t s_bits[kCombineThreads];
+  __shared__ int32_t s_before[kCombineThreads];
+  const int lane = threadIdx.x & 31, w_in = threadIdx.x & ~31;
+  uint32_t* bits = s_bits + w_in;
+  int32_t* word_before = s_before + w_in;
+  const int n_listed = s.counters[1];
+  const int64_t nw = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  int32_t* ranked = s.run_bin;  // free once the scatter has read it
+  for (int64_t w = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5; w < n_listed;
+       w += nw) {
+    const int64_t cell = s.listed[w];
+    const int64_t chunk0 = cell / n_bins * n_chunks;  // the image's first chunk
+    const int off = s.offsets[cell];
+    const int m = s.counters[2 + cell] - off;
+    const int32_t* e = s.entries + off;
+    int done = 0;  // rows in earlier windows
+    for (int c0 = 0; c0 < n_chunks; c0 += 1024) {
+      bits[lane] = 0;
+      __syncwarp();
+      for (int a = lane; a < m; a += 32) {
+        const int c = (int)(e[a] / P - chunk0) - c0;
+        if (c >= 0 && c < 1024) atomicOr(&bits[c >> 5], 1u << (c & 31));
+      }
+      __syncwarp();
+      const int n = __popc(bits[lane]);
+      const int incl = warp_inclusive_sum(n, lane);
+      word_before[lane] = incl - n;
+      __syncwarp();
+      for (int a = lane; a < m; a += 32) {
+        const int32_t row = e[a];
+        const int c = (int)(row / P - chunk0) - c0;
+        if (c >= 0 && c < 1024)
+          ranked[off + done + word_before[c >> 5] + __popc(bits[c >> 5] & ((1u << (c & 31)) - 1u))] =
+              row;
+      }
+      done += __shfl_sync(0xffffffffu, incl, 31);
+      __syncwarp();
+    }
+    float acc = 0.0f;
+    for (int r0 = 0; r0 < m; r0 += 32) {
+      const int32_t row = r0 + lane < m ? ranked[off + r0 + lane] : 0;
+      const int n = m - r0 < 32 ? m - r0 : 32;
+      int u = 0;
+      if (n == 32) {  // a full tile: its 32 loads in flight at once
+        float x[32];
+#pragma unroll
+        for (int t = 0; t < 32; ++t) {
+          const int32_t rt = __shfl_sync(0xffffffffu, row, t);
+          x[t] = lane < K ? s.run_sums[(int64_t)rt * K + lane] : 0.0f;
+        }
+#pragma unroll
+        for (int t = 0; t < 32; ++t) acc = __fadd_rn(acc, x[t]);
+        u = 32;
+      }
+      for (; u < n; ++u) {
+        const int32_t rt = __shfl_sync(0xffffffffu, row, u);
+        if (lane < K) acc = __fadd_rn(acc, s.run_sums[(int64_t)rt * K + lane]);
       }
     }
-  }
-}
-
-template <int KB>
-__global__ void __launch_bounds__(1024)
-binned_sum_partial_kernel(const float* __restrict__ vals, const int32_t* __restrict__ bins,
-                          float* __restrict__ partial, int64_t N, int K, int n_bins,
-                          int64_t chunk, int n_chunks, int stage) {
-  extern __shared__ unsigned char smem[];
-  int32_t* s_bins = reinterpret_cast<int32_t*>(smem);
-  float* s_vals = reinterpret_cast<float*>(s_bins + stage);
-
-  const int b = blockIdx.y;
-  const int c = blockIdx.x;
-  const int64_t start = (int64_t)c * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  const float* v = vals + (int64_t)b * N * K;
-  const int32_t* bb = bins + (int64_t)b * N;
-
-  for (int bin0 = 0; bin0 < n_bins; bin0 += blockDim.x) {
-    const int mine = bin0 + threadIdx.x;
-    float acc[KB];
-    chunk_sums<KB>(v, bb, start, end, K, mine, stage, s_bins, s_vals, acc);
-    if (mine < n_bins) {
-      float* out = partial + (((int64_t)b * n_chunks + c) * n_bins + mine) * K;
-#pragma unroll
-      for (int k = 0; k < KB; ++k)
-        if (k < K) out[k] = acc[k];
-    }
-  }
-}
-
-// One array of N pixels; the grid runs over its chunks. Thread t of a pass
-// owns label l0 + t + 1; row l - 1 of a chunk's partial block holds label l.
-template <int KB>
-__global__ void __launch_bounds__(1024)
-segment_sum_partial_kernel(const float* __restrict__ vals, const int32_t* __restrict__ labels,
-                           float* __restrict__ partial, int64_t N, int K, int max_labels,
-                           int64_t chunk, int stage) {
-  extern __shared__ unsigned char smem[];
-  int32_t* s_bins = reinterpret_cast<int32_t*>(smem);
-  float* s_vals = reinterpret_cast<float*>(s_bins + stage);
-
-  const int64_t start = (int64_t)blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  for (int l0 = 0; l0 < max_labels; l0 += blockDim.x) {
-    const int mine = l0 + threadIdx.x + 1;
-    float acc[KB];
-    chunk_sums<KB>(vals, labels, start, end, K, mine, stage, s_bins, s_vals, acc);
-    if (mine <= max_labels) {
-      float* out = partial + ((int64_t)blockIdx.x * max_labels + (mine - 1)) * K;
-#pragma unroll
-      for (int k = 0; k < KB; ++k)
-        if (k < K) out[k] = acc[k];
-    }
-  }
-}
-
-__global__ void binned_sum_combine_kernel(const float* __restrict__ partial,
-                                          float* __restrict__ out, int B,
-                                          int n_chunks, int n_bins, int K) {
-  const int64_t per_image = (int64_t)n_bins * K;
-  const int64_t total = (int64_t)B * per_image;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t b = idx / per_image;
-    const int64_t r = idx % per_image;
-    const float* p = partial + b * n_chunks * per_image + r;
-    float s = 0.0f;
-    for (int c = 0; c < n_chunks; ++c) s = __fadd_rn(s, p[(int64_t)c * per_image]);
-    out[idx] = s;
+    if (lane < K) out[cell * K + lane] = acc;
+    __syncwarp();
   }
 }
 
@@ -280,70 +544,73 @@ int grid_for(int64_t total) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
-}  // namespace
-
-// partial must hold B * ceil(N / chunk) * n_bins * K floats.
-extern "C" int binned_sum_cols(const float* vals, const int32_t* bins, float* partial,
-                               float* out, int B, int64_t N, int K, int n_bins,
-                               int64_t chunk, void* stream) {
-  if (B < 1 || N < 1 || K < 1 || K > kMaxK || n_bins < 1 || chunk < 1 ||
-      B > 65535)
+// The sum kernels' launches on one stream. With rows = B * n_chunks * P,
+// P = min(kChunk, n_bins): `ints` holds, in order, the counters
+// (2 + B * n_bins), the offsets (B * n_bins), the run counts (B * n_chunks),
+// the run bins (rows) and the entries (rows); `run_sums` rows * K floats;
+// `listed` min(B * n_bins, rows) int64; `out` B * n_bins * K.
+int sum_runs(const float* vals, const int32_t* bins, int shift, float* run_sums, int32_t* ints,
+             int64_t* listed, float* out, int B, int64_t N, int K, int64_t n_bins,
+             void* stream) {
+  if (B < 1 || N < 1 || K < 1 || K > kMaxK || n_bins < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int64_t n_chunks = (N + chunk - 1) / chunk;
-  if (n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int threads = ((n_bins + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const int stage = stage_for(K);
-  const size_t smem = (size_t)stage * sizeof(int32_t) + (size_t)stage * K * sizeof(float);
-  dim3 grid((unsigned)n_chunks, B);
-  if (K <= 8)
-    binned_sum_partial_kernel<8><<<grid, threads, smem, s>>>(
-        vals, bins, partial, N, K, n_bins, chunk, (int)n_chunks, stage);
-  else if (K <= 16)
-    binned_sum_partial_kernel<16><<<grid, threads, smem, s>>>(
-        vals, bins, partial, N, K, n_bins, chunk, (int)n_chunks, stage);
-  else
-    binned_sum_partial_kernel<32><<<grid, threads, smem, s>>>(
-        vals, bins, partial, N, K, n_bins, chunk, (int)n_chunks, stage);
-  cudaError_t e = cudaGetLastError();
+  const int64_t n_chunks = (N + kChunk - 1) / kChunk;
+  const int P = n_bins < kChunk ? (int)n_bins : kChunk;
+  const int64_t rows = (int64_t)B * n_chunks * P;
+  if (rows >= INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int64_t cells = (int64_t)B * n_bins;
+  cudaStream_t st = (cudaStream_t)stream;
+  SumScratch s;
+  s.run_sums = run_sums;
+  s.counters = ints;
+  s.offsets = ints + 2 + cells;
+  s.run_count = s.offsets + cells;
+  s.run_bin = s.run_count + B * n_chunks;
+  s.entries = s.run_bin + rows;
+  s.listed = listed;
+  static bool smem_opted_in = false;  // one card: set once
+  cudaError_t e = cudaSuccess;
+  if (!smem_opted_in) {
+    e = cudaFuncSetAttribute(chunk_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSumSmemMax);
+    smem_opted_in = e == cudaSuccess;
+  }
+  if (e == cudaSuccess) e = cudaMemsetAsync(ints, 0, (size_t)(2 + cells) * sizeof(int32_t), st);
+  if (e == cudaSuccess) e = cudaMemsetAsync(out, 0, (size_t)cells * K * sizeof(float), st);
   if (e != cudaSuccess) return (int)e;
-  const int64_t total = (int64_t)B * n_bins * K;
-  binned_sum_combine_kernel<<<grid_for(total), 256, 0, s>>>(partial, out, B, (int)n_chunks,
-                                                           n_bins, K);
+  // the columns in groups of at most kStage, as even as they come
+  const int n_groups = (K + kStage - 1) / kStage;
+  const int G = (K + n_groups - 1) / n_groups;
+  const size_t smem = (size_t)kHeadBytes + (size_t)kValStride * G * sizeof(float);
+  const dim3 grid((unsigned)n_chunks, B);
+  chunk_runs_kernel<<<grid, kSumThreads, smem, st>>>(vals, bins, N, K, n_bins, shift,
+                                                     (int)n_chunks, P, G, s);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  alloc_kernel<<<grid_for(cells), 256, 0, st>>>(s, cells);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  scatter_kernel<<<grid, 256, 0, st>>>(s, n_bins, (int)n_chunks, P);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int64_t most_listed = cells < rows ? cells : rows;
+  // two warps a block, so that few long lists still spread over the SMs
+  const int64_t combine_blocks = (most_listed + 1) / 2;
+  combine_kernel<<<combine_blocks < 8192 ? (int)combine_blocks : 8192, kCombineThreads, 0, st>>>(
+      s, out, K, n_bins, (int)n_chunks, P);
   return (int)cudaGetLastError();
 }
 
-// partial must hold ceil(N / chunk) * max_labels * K floats; out holds
-// max_labels * K.
-extern "C" int segment_sum(const float* vals, const int32_t* labels, float* partial,
-                           float* out, int64_t N, int K, int max_labels, int64_t chunk,
-                           void* stream) {
-  if (N < 1 || K < 1 || K > kMaxK || max_labels < 1 || chunk < 1)
-    return (int)cudaErrorInvalidValue;
-  const int64_t n_chunks = (N + chunk - 1) / chunk;
-  if (n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int threads = ((max_labels + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const int stage = stage_for(K);
-  const size_t smem = (size_t)stage * sizeof(int32_t) + (size_t)stage * K * sizeof(float);
-  const unsigned grid = (unsigned)n_chunks;
-  if (K <= 8)
-    segment_sum_partial_kernel<8><<<grid, threads, smem, s>>>(vals, labels, partial, N, K,
-                                                             max_labels, chunk, stage);
-  else if (K <= 16)
-    segment_sum_partial_kernel<16><<<grid, threads, smem, s>>>(vals, labels, partial, N, K,
-                                                              max_labels, chunk, stage);
-  else
-    segment_sum_partial_kernel<32><<<grid, threads, smem, s>>>(vals, labels, partial, N, K,
-                                                              max_labels, chunk, stage);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int64_t total = (int64_t)max_labels * K;
-  binned_sum_combine_kernel<<<grid_for(total), 256, 0, s>>>(partial, out, 1, (int)n_chunks,
-                                                           max_labels, K);
-  return (int)cudaGetLastError();
+}  // namespace
+
+extern "C" int binned_sum_cols(const float* vals, const int32_t* bins, float* run_sums,
+                               int32_t* ints, int64_t* listed, float* out, int B, int64_t N,
+                               int K, int64_t n_bins, void* stream) {
+  return sum_runs(vals, bins, 0, run_sums, ints, listed, out, B, N, K, n_bins, stream);
+}
+
+// Labels 1..max_labels are bins 0..max_labels - 1 of one image.
+extern "C" int segment_sum(const float* vals, const int32_t* labels, float* run_sums,
+                           int32_t* ints, int64_t* listed, float* out, int64_t N, int K,
+                           int64_t max_labels, void* stream) {
+  return sum_runs(vals, labels, 1, run_sums, ints, listed, out, 1, N, K, max_labels, stream);
 }
 
 // mn, mx and nan hold B * n_bins * K int32 each; on return mn and mx hold

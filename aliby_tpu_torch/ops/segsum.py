@@ -10,6 +10,13 @@ Each wrapper runs its plain PyTorch version (``*_plain``) for CPU tensors
 and launches its CUDA kernel (``kernels/csrc/segsum.cu``) for CUDA tensors;
 there is no fallback between the two. ``<wrapper>.launches`` counts kernel
 launches.
+
+The two sum kernels take every sum in one fixed order: a left fold from
++0.0 over the bin's pixels of each ``CHUNK``-pixel chunk, in pixel order,
+then a left fold of the chunk sums in chunk order. ``*_chunked`` computes
+the same with plain PyTorch; on the CPU, where ``index_add_`` adds in index
+order, it gives the kernel's bits (a test and smoke helper: no path of the
+port calls it).
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ import torch
 from aliby_tpu_torch.kernels import _build
 
 MAX_COLS = 32  # segsum.cu kMaxK
-CHUNK = 4096  # pixels per block in the kernels' first pass
+CHUNK = 4096  # segsum.cu kChunk: the sum kernels' chunk (their summation order)
+MAX_ROWS = 2**31 - 1  # the sum kernels' run rows must stay below it (int32 row indices)
 LOOKUP_CHUNK = 8192  # pixels per block of the lookup kernel
 MINMAX_MAX_SLOTS = 4096  # n_bins * K: three int32 tables in 48 KB of shared memory
 LOOKUP_MAX_SLOTS = 12288  # L * K: one f32 table in 48 KB of shared memory
@@ -68,40 +76,87 @@ def _flat_index(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
     return torch.where(valid, flat + base, B * n_bins).reshape(-1)
 
 
-def binned_sum_cols_batched_plain(values: torch.Tensor, bins: torch.Tensor,
-                                  n_bins: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`binned_sum_cols_batched`."""
-    vals, flat, B, N, K = _prep(values, bins)
+def _index_add_sums(vals: torch.Tensor, flat: torch.Tensor, n_bins: int) -> torch.Tensor:
+    B, K = flat.shape[0], vals.shape[-1]
     idx = _flat_index(flat, n_bins)
     out = torch.zeros(B * n_bins + 1, K, dtype=torch.float32, device=vals.device)
     out.index_add_(0, idx, vals.reshape(-1, K))
     return out[:-1].reshape(B, n_bins, K)
 
 
-def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
-                            n_bins: int) -> torch.Tensor:
-    """Batched per-bin sums: (B, ..., K) values, (B, ...) int bins ->
-    (B, n_bins, K) f32, K <= 32 on CUDA. Bins outside [0, n_bins) add
-    nothing. On CUDA the sums are deterministic (fixed order, no atomics)."""
-    if _device_of(values) == "cpu":
-        return binned_sum_cols_batched_plain(values, bins, n_bins)
+def binned_sum_cols_batched_plain(values: torch.Tensor, bins: torch.Tensor,
+                                  n_bins: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`binned_sum_cols_batched`."""
     vals, flat, B, N, K = _prep(values, bins)
+    return _index_add_sums(vals, flat, n_bins)
+
+
+def binned_sum_cols_batched_chunked(values: torch.Tensor, bins: torch.Tensor,
+                                    n_bins: int) -> torch.Tensor:
+    """:func:`binned_sum_cols_batched_plain` in the kernel's order: each
+    ``CHUNK``-pixel chunk summed on its own, then the chunk sums added from
+    +0.0 in chunk order. On the CPU these are the kernel's bits."""
+    vals, flat, B, N, K = _prep(values, bins)
+    out = torch.zeros(B, n_bins, K, dtype=torch.float32, device=vals.device)
+    for c0 in range(0, N, CHUNK):
+        out = out + _index_add_sums(vals[:, c0:c0 + CHUNK], flat[:, c0:c0 + CHUNK], n_bins)
+    return out
+
+
+def _run_rows(B: int, N: int, n_bins: int) -> int:
+    """Rows of run sums: a chunk has at most min(CHUNK, n_bins) runs (a
+    run is a bin's pixels in one chunk)."""
+    return B * -(-N // CHUNK) * min(CHUNK, n_bins)
+
+
+def sum_scratch_sizes(B: int, N: int, K: int, n_bins: int) -> tuple[int, int, int]:
+    """Element counts of the sum kernels' scratch (f32, int32, int64), as
+    ``segsum.cu`` ``sum_runs`` lays it out: a row of K sums for each run;
+    each run's bin and its place in its bin's list; per-chunk run counts;
+    per-(image, bin) counts and offsets; the list of non-empty (image, bin)s."""
+    rows, cells = _run_rows(B, N, n_bins), B * n_bins
+    return rows * K, 2 + 2 * cells + B * -(-N // CHUNK) + 2 * rows, min(cells, rows)
+
+
+def _launch_sums(entry: str, what: str, vals, flat, B: int, N: int, K: int, n_bins: int):
+    """Run one of the sum kernels' C entries; (B, n_bins, K) f32."""
     if not 1 <= K <= MAX_COLS:
         raise ValueError(f"the kernel takes 1..{MAX_COLS} columns, got {K}")
     if n_bins < 1:
         raise ValueError(f"n_bins must be positive, got {n_bins}")
-    vals = vals.contiguous()
-    flat = _int32_bins(flat, n_bins)
-    n_chunks = -(-N // CHUNK)
-    partial = torch.empty(B * n_chunks * n_bins * K, dtype=torch.float32, device=vals.device)
-    out = torch.empty(B, n_bins, K, dtype=torch.float32, device=vals.device)
+    if not 1 <= B <= 65535 or N < 1 or _run_rows(B, N, n_bins) >= MAX_ROWS:
+        raise ValueError(f"the kernel takes 1..65535 images and fewer than {MAX_ROWS} run rows "
+                         f"(images x chunks x min({CHUNK}, n_bins)), got B {B}, N {N}, "
+                         f"n_bins {n_bins}")
+    dev = vals.device
+    n_f, n_i, n_l = sum_scratch_sizes(B, N, K, n_bins)
+    # one allocation: the int64 list first, then the floats, then the ints
+    scratch = torch.empty(2 * n_l + n_f + n_i, dtype=torch.int32, device=dev)
+    out = torch.empty(B, n_bins, K, dtype=torch.float32, device=dev)
     lib = _build.load("segsum")
-    _build.check(
-        lib.binned_sum_cols(vals.data_ptr(), flat.data_ptr(), partial.data_ptr(),
-                            out.data_ptr(), B, N, K, n_bins, CHUNK,
-                            _build.stream_of(vals)),
-        "binned_sum_cols_batched",
-    )
+    base = scratch.data_ptr()
+    args = (vals.data_ptr(), flat.data_ptr(), base + 8 * n_l, base + 8 * n_l + 4 * n_f, base,
+            out.data_ptr())
+    if entry == "segment_sum":
+        err = lib.segment_sum(*args, N, K, n_bins, _build.stream_of(vals))
+    else:
+        err = lib.binned_sum_cols(*args, B, N, K, n_bins, _build.stream_of(vals))
+    _build.check(err, what)
+    return out
+
+
+def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
+                            n_bins: int) -> torch.Tensor:
+    """Batched per-bin sums: (B, ..., K) values, (B, ...) int bins ->
+    (B, n_bins, K) f32, K <= 32 on CUDA. Bins outside [0, n_bins) add
+    nothing. On CUDA the sums are deterministic: the order of
+    :func:`binned_sum_cols_batched_chunked`, no float atomics; the work and
+    the scratch follow the pixels, not n_bins."""
+    if _device_of(values) == "cpu":
+        return binned_sum_cols_batched_plain(values, bins, n_bins)
+    vals, flat, B, N, K = _prep(values, bins)
+    out = _launch_sums("binned_sum_cols", "binned_sum_cols_batched", vals.contiguous(),
+                       _int32_bins(flat, n_bins), B, N, K, n_bins)
     binned_sum_cols_batched.launches += 1
     return out
 
@@ -134,13 +189,25 @@ def segment_sum_matmul_plain(values: torch.Tensor, labels: torch.Tensor,
     return out[:-1]
 
 
+def segment_sum_matmul_chunked(values: torch.Tensor, labels: torch.Tensor,
+                               max_labels: int) -> torch.Tensor:
+    """:func:`segment_sum_matmul_plain` in the kernel's order (see
+    :func:`binned_sum_cols_batched_chunked`); on the CPU the kernel's bits."""
+    vals, flat_l = _prep_segment(values, labels)
+    out = torch.zeros(max_labels, vals.shape[1], dtype=torch.float32, device=vals.device)
+    for c0 in range(0, flat_l.numel(), CHUNK):
+        out = out + segment_sum_matmul_plain(vals[c0:c0 + CHUNK], flat_l[c0:c0 + CHUNK],
+                                             max_labels)
+    return out
+
+
 def segment_sum_matmul(values: torch.Tensor, labels: torch.Tensor,
                        max_labels: int) -> torch.Tensor:
     """Per-label sums of K value columns, unbatched: (N, K) values (or any
     shape that flattens to it) and (N,) int labels -> (max_labels, K) f32,
     label k in row k - 1. Label 0, negative labels and labels above
     ``max_labels`` add nothing. K <= 32 on CUDA, where the sums are
-    deterministic (fixed order, no atomics).
+    deterministic: the order of :func:`segment_sum_matmul_chunked`.
 
     The reference's ``tile`` and ``interpret`` arguments are gone: the
     per-tile one-hot matmul (and its tile % 1024 rule) was the TPU's
@@ -152,23 +219,12 @@ def segment_sum_matmul(values: torch.Tensor, labels: torch.Tensor,
         return segment_sum_matmul_plain(values, labels, max_labels)
     vals, flat_l = _prep_segment(values, labels)
     N, K = vals.shape
-    if not 1 <= K <= MAX_COLS:
-        raise ValueError(f"the kernel takes 1..{MAX_COLS} columns, got {K}")
     if max_labels < 1:
         raise ValueError(f"max_labels must be positive, got {max_labels}")
-    vals = vals.contiguous()
-    flat_l = _int32_bins(flat_l, max_labels + 1)
-    n_chunks = -(-N // CHUNK)
-    partial = torch.empty(n_chunks * max_labels * K, dtype=torch.float32, device=vals.device)
-    out = torch.empty(max_labels, K, dtype=torch.float32, device=vals.device)
-    lib = _build.load("segsum")
-    _build.check(
-        lib.segment_sum(vals.data_ptr(), flat_l.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                        N, K, max_labels, CHUNK, _build.stream_of(vals)),
-        "segment_sum_matmul",
-    )
+    out = _launch_sums("segment_sum", "segment_sum_matmul", vals.contiguous(),
+                       _int32_bins(flat_l, max_labels + 1), 1, N, K, max_labels)
     segment_sum_matmul.launches += 1
-    return out
+    return out[0]
 
 
 segment_sum_matmul.launches = 0

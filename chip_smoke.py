@@ -10,12 +10,18 @@ Phases, in order; any failure exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a ragged one: stencils, per-bin min/max and
    table lookup bit-equal (NaN positions equal); per-bin sums (K = 3 and
-   K = 17) with exact counts, sums within rtol 1e-5, bit-equal across runs;
-   the unbatched ``segment_sum_matmul`` at (16 x 65,536, 16) -> 256 labels
-   and a ragged N (integer-valued columns exact, the rest within the
-   worst-case f32 summation bound, bit-equal across runs); the column
-   grouping of ``reductions.binned_sum_cols`` at K = 367 against the plain
-   sum, with a non-finite value poisoning all 367 columns of its bin.
+   K = 17) with exact counts, sums within rtol 1e-5 and the summation bound
+   of the plain version, and bit-equal (NaN positions equal) to the
+   kernel's order taken on the CPU (``segsum.binned_sum_cols_batched_chunked``)
+   and across runs; the unbatched ``segment_sum_matmul`` at (16 x 65,536,
+   16) -> 256 labels and a ragged N (integer-valued columns exact, the rest
+   within the worst-case f32 summation bound, bit-equal to
+   ``segment_sum_matmul_chunked`` on the CPU and across runs); two
+   adversarial sums (every pixel in one bin; every pixel in its own bin of
+   66,049), bit-equal to the CPU's; the column grouping of
+   ``reductions.binned_sum_cols`` at K = 367 against the plain sum and, bit
+   for bit, against the same grouping on the CPU in the kernel's order, with
+   a non-finite value poisoning all 367 columns of its bin.
 3. slice 1 (segmentation): eight 256x256 five-channel Cell Painting fields,
    objects ``nuclei`` (channel 0, second channel 3) and ``cell`` (channel 3,
    second channel 0) through ``dispatch_segmenter("cellpose")`` as one batch
@@ -46,7 +52,13 @@ Phases, in order; any failure exits non-zero:
 4. report: per-kernel times on the default-bank step's own inputs (median of 21
    runs, CUDA events) beside the plain version, the bound and the library
    call, each kernel's output held to the plain version's on those inputs
-   as in phase 2, and ``segment_sum_matmul`` at phase 2's shape; each fused
+   as in phase 2 (the sums also bit-equal to the kernel's order on the CPU
+   and across runs), the costes histogram of the 1080x1080 field's wide
+   pass (66,049 bins), and ``segment_sum_matmul`` at phase 2's shape; each
+   main-path sum no slower than ``index_add_`` in the same call
+   (``segment_sum_matmul``'s ratio reported), and the device time of each
+   launch of one sum call (the costes histograms, ``segment_sum_matmul``);
+   each fused
    step's fields/s, stage breakdown and peak memory, the default bank's
    device idle share; the ``kernels`` JSON line (six kernels, launches counted
    over one default-bank step); the card's name and power limit;
@@ -59,7 +71,6 @@ result. Weights are the bundled checkpoint; inputs come from fixed seeds.
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import os
 import statistics
@@ -135,6 +146,37 @@ def equal_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal values and equal NaN positions."""
     na, nb = torch.isnan(a), torch.isnan(b)
     return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits at every position, NaN positions equal (any payload)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def check_kernel_order(kernel, on_cpu, what: str) -> None:
+    """A sum kernel's output (two runs of ``kernel()``) has the bits of
+    ``on_cpu()``, its order taken on the CPU, and the same bits twice."""
+    got, again = kernel(), kernel()
+    sync()
+    want = on_cpu()
+    if not same_bits(got, again):
+        raise AssertionError(f"{what}: two runs differ")
+    if not same_bits(got, want):
+        g, w = got.cpu(), want
+        n = int((~((g == w) | (torch.isnan(g) & torch.isnan(w)))).sum())
+        raise AssertionError(f"{what}: != the kernel's order on the CPU ({n} sums differ)")
+
+
+def check_sum_order(vals, bins, n_bins, what: str) -> None:
+    from aliby_tpu_torch.ops import segsum
+
+    check_kernel_order(
+        lambda: segsum.binned_sum_cols_batched(vals, bins, n_bins),
+        lambda: segsum.binned_sum_cols_batched_chunked(vals.cpu(), bins.cpu(), n_bins),
+        f"binned_sum_cols_batched {what}")
 
 
 def max_abs_err(got, want) -> float:
@@ -260,9 +302,11 @@ def kernel_checks(rng, dev) -> None:
             raise AssertionError(f"binned_sum_cols_batched differs between runs at {(B, H, W)}")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
         rel, ratio = check_sums(got, want, vals, bins, n_bins, f"{(B, H, W)}")
+        check_sum_order(vals, bins, n_bins, f"{(B, H, W)}")
         log(f"[kernels] {(B, H, W)}: successor_prop, diffuse_heat bit-equal; "
             f"binned_sum_cols_batched counts exact, sums max rel err {rel:.3g}, "
-            f"max err / bound {ratio:.3g}, deterministic")
+            f"max err / bound {ratio:.3g}, deterministic, bit-equal to the kernel's order "
+            f"on the CPU")
 
     # the slice-2 kernels and the widened sum, at the fused path's pixel counts
     for B, N in ((16, 256 * 256), (2, 1080 * 1080), (3, 200 * 312)):
@@ -303,10 +347,33 @@ def kernel_checks(rng, dev) -> None:
             raise AssertionError(f"binned_sum_cols_batched K=17 differs between runs at {(B, N)}")
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
         rel, ratio = check_sums(got, want, v, b, n_bins, f"K=17 at {(B, N)}")
+        check_sum_order(v, b, n_bins, f"K=17 at {(B, N)}")
         log(f"[kernels] {(B, N)} px: binned_minmax_batched {minmax_cases} and "
             f"table_lookup_batched (L 64, 256; K 3) equal to plain with NaN positions equal; "
             f"binned_sum_cols_batched K=17 counts exact, max rel err {rel:.3g}, max err / bound "
-            f"{ratio:.3g}, deterministic")
+            f"{ratio:.3g}, deterministic, bit-equal to the kernel's order on the CPU")
+
+    # adversarial sums: every pixel in one bin (4,096-add runs, a ragged N);
+    # every pixel in a bin of its own among 66,049
+    N = 1080 * 1080
+    v = torch.from_numpy(rng.normal(0, 1, (2, N, 6)).astype(np.float32)).to(dev)
+    one_bin = torch.zeros(2, N, dtype=torch.int32, device=dev)
+    check_sum_order(v, one_bin, 66049, "every pixel in bin 0 of 66,049")
+    check_sum_order(v[..., :1].contiguous(), one_bin, 1, "every pixel in one bin, K 1")
+    own = torch.from_numpy(np.stack([rng.permutation(66049)[:65536] for _ in range(16)])
+                           .astype(np.int32)).to(dev)
+    v16 = torch.from_numpy(rng.normal(0, 1, (16, 65536, 6)).astype(np.float32)).to(dev)
+    check_sum_order(v16, own, 66049, "every pixel in its own bin of 66,049")
+    # more than 1,024 chunks in one image: the combine ranks in windows
+    n_big = 4096 * 1100 + 5
+    v_big = torch.from_numpy(rng.normal(0, 1, (1, n_big, 2)).astype(np.float32)).to(dev)
+    b_big = torch.from_numpy(rng.integers(-1, 5, (1, n_big)).astype(np.int32)).to(dev)
+    check_sum_order(v_big, b_big, 4, f"(1, {n_big}, 2) -> 4 bins, 1,101 chunks")
+    t_one = cuda_ms(lambda: segsum.binned_sum_cols_batched(v, one_bin, 66049))
+    t_own = cuda_ms(lambda: segsum.binned_sum_cols_batched(v16, own, 66049))
+    log(f"[kernels] adversarial sums bit-equal to the kernel's order on the CPU and across runs: "
+        f"(2, {N}, 6) all in one bin {t_one:.4f} ms; (16, 65536, 6) each pixel in its own bin "
+        f"of 66,049 {t_own:.4f} ms; (1, {n_big}, 2) over 1,101 chunks")
 
     # the unbatched per-label sums: label 0, negative labels and labels past
     # max_labels are dropped; half the columns hold small integers (exact sums)
@@ -322,8 +389,13 @@ def kernel_checks(rng, dev) -> None:
         if not torch.equal(got[:, K // 2:], want[:, K // 2:]):
             raise AssertionError(f"segment_sum_matmul integer-valued columns != plain at N {N}")
         rel, ratio = check_segment_sums(got, want, v, lab, max_labels, f"N {N}")
+        check_kernel_order(lambda: segsum.segment_sum_matmul(v, lab, max_labels),
+                           lambda: segsum.segment_sum_matmul_chunked(v.cpu(), lab.cpu(),
+                                                                     max_labels),
+                           f"segment_sum_matmul N {N}")
         log(f"[kernels] segment_sum_matmul ({N}, {K}) -> {max_labels} labels: integer-valued "
-            f"columns exact, max rel err {rel:.3g}, max err / bound {ratio:.3g}, deterministic")
+            f"columns exact, max rel err {rel:.3g}, max err / bound {ratio:.3g}, deterministic, "
+            f"bit-equal to the kernel's order on the CPU")
 
     # the column grouping of the sum wrapper: 367 columns = 12 passes of <= 31 + the flag
     from aliby_tpu_torch.extract import reductions
@@ -342,6 +414,11 @@ def kernel_checks(rng, dev) -> None:
         raise AssertionError(f"binned_sum_cols K=367: {n_pass} passes, shape {tuple(got.shape)}, "
                              f"or a column's bits depend on its group")
     rel, ratio = check_sums(got, want, v, b, n_bins, "K=367")
+    with kernel_order_on_cpu():
+        on_cpu = reductions.binned_sum_cols(v.cpu(), b.cpu(), n_bins)
+    if not same_bits(got, on_cpu):
+        raise AssertionError("binned_sum_cols K=367 != the same grouping on the CPU in the "
+                             "kernel's order")
     v[1, 5, 366] = float("inf")
     poisoned = reductions.binned_sum_cols(v, b, n_bins)
     keep = torch.ones(B, n_bins, dtype=torch.bool, device=dev)
@@ -350,8 +427,8 @@ def kernel_checks(rng, dev) -> None:
         raise AssertionError("binned_sum_cols K=367: a non-finite value must poison all K columns "
                              "of its own bin and nothing else")
     log(f"[kernels] binned_sum_cols ({B}, {N}, {K}) -> {n_bins} bins in {n_pass} passes: max rel "
-        f"err {rel:.3g}, max err / bound {ratio:.3g}; a column's bits do not depend on its group; "
-        f"one shared non-finite flag")
+        f"err {rel:.3g}, max err / bound {ratio:.3g}; bit-equal to the CPU's grouping in the "
+        f"kernel's order; a column's bits do not depend on its group; one shared non-finite flag")
 
 
 def segment_sum_inputs(rng, N, K, max_labels, dev):
@@ -442,6 +519,7 @@ def binned_sum_row(vals, bins, n_bins, launches) -> dict:
 
     Bv, K = bins.shape[0], vals.shape[-1]
     N = bins[0].numel()
+    check_sum_order(vals, bins, n_bins, f"{(Bv, N, K, n_bins)} (phase 4)")
     idx = segsum._flat_index(bins.reshape(Bv, -1), n_bins)
     flat_vals = vals.reshape(-1, K).to(torch.float32)
     acc = torch.zeros(Bv * n_bins + 1, K, device=vals.device)  # index_add returns a new tensor
@@ -648,6 +726,38 @@ def device_share(fn, what="one batch") -> None:
         log(f"[profile]   {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms in {e.count} calls")
 
 
+def sum_breakdown(costes, wide_costes, segment_shape, dev) -> None:
+    """Device time of each launch of one sum-kernel call (torch.profiler,
+    mean of 5 calls): the costes histogram at 256^2 and at 1080^2, and
+    segment_sum_matmul at phase 2's shape."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aliby_tpu_torch.ops import segsum
+
+    N, K, L = segment_shape
+    v, lab = segment_sum_inputs(np.random.default_rng(6), N, K, L, dev)
+    calls = {"costes histogram": lambda: segsum.binned_sum_cols_batched(*costes),
+             "costes histogram 1080^2": lambda: segsum.binned_sum_cols_batched(*wide_costes),
+             "segment_sum_matmul": lambda: segsum.segment_sum_matmul(v, lab, L)}
+    for what, fn in calls.items():
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            sync()
+        parts = [(e.key.replace("(anonymous namespace)::", "").split("(")[0],
+                  e.self_device_time_total / 5e3) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if not parts:
+            log(f"[report] {what}: device time by launch not measured (the profiler saw no "
+                f"CUDA kernels)")
+            continue
+        log(f"[report] {what}, device time per call by launch: " + ", ".join(
+            f"{k} {t:.4f} ms" for k, t in parts) + f"; total {sum(t for _, t in parts):.4f} ms")
+
+
 def peak_gb(fn) -> float:
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -656,18 +766,18 @@ def peak_gb(fn) -> float:
     return torch.cuda.max_memory_allocated() / 1e9
 
 
-def kernel_order_sums(values, bins, n_bins, plain):
-    """The per-bin sums of ``binned_sum_cols_batched`` on the CPU, taken in
-    its CUDA kernel's order: each 4096-pixel chunk in pixel order (``plain``,
-    the plain version), then the chunk sums in chunk order (``segsum.cu``)."""
+@contextlib.contextmanager
+def kernel_order_on_cpu():
+    """The port's CPU path takes its per-bin sums in the CUDA kernel's order
+    (``segsum.binned_sum_cols_batched_chunked``) inside the block."""
     from aliby_tpu_torch.ops import segsum
 
-    vals, flat, B, N, K = segsum._prep(values, bins)
-    out = torch.zeros(B, n_bins, K)
-    for c0 in range(0, N, segsum.CHUNK):
-        sl = slice(c0, c0 + segsum.CHUNK)
-        out = out + plain(vals[:, sl], flat[:, sl], n_bins)
-    return out
+    plain = segsum.binned_sum_cols_batched_plain
+    segsum.binned_sum_cols_batched_plain = segsum.binned_sum_cols_batched_chunked
+    try:
+        yield
+    finally:
+        segsum.binned_sum_cols_batched_plain = plain
 
 
 def compare_features(gpu_feats, cpu_feats, fields, what: str) -> None:
@@ -856,24 +966,19 @@ def fused_wide_pass(what: str, step, big) -> dict:
 def fused_gpu_vs_cpu(what: str, pixels) -> None:
     """The f32 fused step on the card (TF32 off) against the port on the CPU.
 
-    The CPU takes its per-bin sums in the card's order (``kernel_order_sums``),
-    so that what is compared is the rest of the arithmetic; phase 2 holds
-    the sums themselves to the plain version's order (rtol 1e-5)."""
+    The CPU takes its per-bin sums in the card's order (``kernel_order_on_cpu``),
+    so that what is compared is the rest of the arithmetic; phases 2 and 4
+    hold the sums themselves to that order bit for bit."""
     from aliby_tpu_torch.engine.builders import build_pipeline_steps
     from aliby_tpu_torch.engine.compiled import try_compile
-    from aliby_tpu_torch.ops import segsum
 
     pipeline = build_pipeline_steps(
         **FUSED_PATHS[what][0], segmenter_extra_kwargs={"model_kwargs": {"dtype": torch.float32}})
     gpu = try_compile(pipeline).fused(pixels)
-    plain = segsum.binned_sum_cols_batched_plain
-    segsum.binned_sum_cols_batched_plain = functools.partial(kernel_order_sums, plain=plain)
-    try:
+    with kernel_order_on_cpu():
         t0 = time.perf_counter()
         cpu = try_compile(pipeline, device="cpu").fused(pixels)
         t_cpu = time.perf_counter() - t0
-    finally:
-        segsum.binned_sum_cols_batched_plain = plain
     fields = [f for f in range(pixels.shape[0]) if all(
         np.array_equal(g[f], c[f]) for g, c in zip(gpu["labels"], cpu["labels"]))]
     log(f"[fused] {what}, f32 GPU vs CPU (CPU step {t_cpu:.1f} s, sums in the kernel's order): "
@@ -925,6 +1030,9 @@ def segment_sum_row(rng, dev, launches: int) -> dict:
 
     N, K, max_labels = SEGMENT_SUM_SHAPE
     v, lab = segment_sum_inputs(rng, N, K, max_labels, dev)
+    check_kernel_order(lambda: segsum.segment_sum_matmul(v, lab, max_labels),
+                       lambda: segsum.segment_sum_matmul_chunked(v.cpu(), lab.cpu(), max_labels),
+                       "segment_sum_matmul (phase 4)")
     valid = (lab >= 1) & (lab <= max_labels)
     idx = torch.where(valid, lab - 1, max_labels).to(torch.int64)
     acc = torch.zeros(max_labels + 1, K, device=dev)
@@ -956,7 +1064,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from aliby_tpu_torch.extract import reductions
+    from aliby_tpu_torch.extract import features, reductions
     from aliby_tpu_torch.kernels import _build
     from aliby_tpu_torch.models import flows
     from aliby_tpu_torch.models.segment import dispatch_segmenter, segment_grouped
@@ -1063,6 +1171,11 @@ def main() -> int:
     step, fused_rec, fused_launches, fused_stats = fused_checks("default bank", pixels, plain_seg,
                                                                 reps=5, profile=True)
     fused_stats.update(fused_wide_pass("default bank", step, big))
+    # the wide pass's costes histogram: cap 256, (256 + 1) * 257 bins
+    with Recorder(features, "binned_sum_cols_batched", lambda v, b, n: n == 257 * 257) as wide:
+        step.fused(big)
+    if wide.args is None:
+        raise AssertionError("the 1080x1080 wide pass made no costes histogram of 66,049 bins")
 
     # -------------------------------------------------- 3 f32 on the card vs the CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -1094,24 +1207,36 @@ def main() -> int:
 
     # --------------------------------------------------------------- 4 report
     log("[report] slice 1 (segmentation) kernels on its own inputs:")
-    measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, recorders)}, launches)
+    qc = measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, recorders)}, launches)
     log("[report] the same, on the 1080x1080 field's inputs:")
-    measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, big_recorders)}, big_launches)
+    qc_big = measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, big_recorders)},
+                             big_launches)
     log("[report] the default-bank step's kernels on its own inputs (launches: one step; the "
         f"example-01 step launched {ex01_launches}):")
     rows = measure_kernels(fused_rec, fused_launches)
     log("[report] the costes histogram (binned_sum_cols_batched, 6 columns, "
         "(cap + 1) * 257 bins):")
     n_sum = fused_launches["binned_sum_cols_batched"]
-    binned_sum_row(*fused_rec["costes histogram"], n_sum)
+    sum_rows = [qc["binned_sum_cols_batched"], qc_big["binned_sum_cols_batched"],
+                rows["binned_sum_cols_batched"], binned_sum_row(*fused_rec["costes histogram"], n_sum)]
+    log("[report] the costes histogram of the 1080x1080 field's wide pass (cap 256, 66,049 bins; "
+        "launches: one default-bank step on 8 fields):")
+    sum_rows.append(binned_sum_row(*wide.args, n_sum))
     log("[report] the default bank's other shapes: a zernike entry's first column group, the "
         "radial distribution's (label, ring) bins, texture's range, the per-channel lookup:")
-    binned_sum_row(*fused_rec["zernike group"], n_sum)
-    binned_sum_row(*fused_rec["radial rings"], n_sum)
+    sum_rows.append(binned_sum_row(*fused_rec["zernike group"], n_sum))
+    sum_rows.append(binned_sum_row(*fused_rec["radial rings"], n_sum))
     measure_kernels({"binned_minmax_batched": fused_rec["texture range"],
                      "table_lookup_batched": fused_rec["channel lookup"]}, fused_launches)
     rows["segment_sum_matmul"] = segment_sum_row(np.random.default_rng(6), dev,
                                                  fused_launches["segment_sum_matmul"])
+    log("[report] sum kernels against index_add_ in this call (kernel ms / library ms): " + ", ".join(
+        f"{tuple(r['shape'])} {r['ms'] / r['library_ms']:.3f}" for r in sum_rows + [
+            rows["segment_sum_matmul"]]) + " (the last: segment_sum_matmul, on no path)")
+    slower = [tuple(r["shape"]) for r in sum_rows if r["ms"] > r["library_ms"]]
+    if slower:
+        raise AssertionError(f"main-path sums slower than index_add_ in this call at {slower}")
+    sum_breakdown(fused_rec["costes histogram"], wide.args, SEGMENT_SUM_SHAPE, dev)
 
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},

@@ -67,6 +67,76 @@ def test_binned_sum_kernel(dev, n_bins, K):
     assert torch.equal(got, segsum.binned_sum_cols_batched(vals, bins, n_bins))
     assert torch.equal(got[..., -1], want[..., -1])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert _same_bits(got, segsum.binned_sum_cols_batched_chunked(vals.cpu(), bins.cpu(), n_bins))
+
+
+def _same_bits(a, b):
+    """The same bits at every position, NaN positions equal (any payload)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _sum_inputs(rng, B, H, W, K, n_bins, layout):
+    """(B, H*W, K) values with +-inf and NaN here and there and a count
+    column, and (B, H*W) int32 bins, some negative or past n_bins. ``labels``:
+    bins as the feature bank lays them out, contiguous objects (tiled
+    synthetic label maps) times 257 sub-bins where n_bins holds them;
+    ``uniform``: uniform random bins."""
+    from aliby_tpu_torch.test_data import render_cells
+
+    N = H * W
+    if layout == "labels":
+        sub = 257 if n_bins > 257 and n_bins % 257 == 0 else 1
+        n_obj = n_bins // sub
+        maps = []
+        for _ in range(B):
+            lab = render_cells(256, 24, rng)[2]
+            lab = np.tile(lab, (-(-H // 256), -(-W // 256)))[:H, :W].astype(np.int64)
+            maps.append((lab % n_obj) * sub + rng.integers(0, sub, (H, W)))
+        bins = np.stack(maps).reshape(B, N)
+    else:
+        bins = rng.integers(0, n_bins, (B, N))
+    bins[rng.random((B, N)) < 0.01] = -1
+    bins[rng.random((B, N)) < 0.005] = n_bins + 7
+    bins[:, :3] = (-5, n_bins, 0)
+    vals = rng.normal(size=(B, N, K)).astype(np.float32)
+    vals[..., -1] = 1.0
+    for v in (np.inf, -np.inf, np.nan):
+        vals[rng.integers(0, B), rng.integers(3, N), rng.integers(0, K)] = v
+    return (torch.from_numpy(vals).to("cuda"),
+            torch.from_numpy(bins.astype(np.int32)).to("cuda"))
+
+
+@pytest.mark.parametrize("layout", ["labels", "uniform"])
+@pytest.mark.parametrize("n_bins,K", [(1, 1), (65, 17), (65, 32), (257, 3), (16705, 6),
+                                      (66049, 6)])
+def test_binned_sum_kernel_bit_equal_to_chunked(dev, n_bins, K, layout):
+    """The sums have the bits of the kernel's order taken on the CPU (a
+    ragged N, dropped bins, +-inf and NaN included) and the same bits on
+    two runs."""
+    vals, bins = _sum_inputs(np.random.default_rng(n_bins + K), 3, 257, 259, K, n_bins, layout)
+    got = segsum.binned_sum_cols_batched(vals, bins, n_bins)
+    again = segsum.binned_sum_cols_batched(vals, bins, n_bins)
+    want = segsum.binned_sum_cols_batched_chunked(vals.cpu(), bins.cpu(), n_bins)
+    assert got.shape == (3, n_bins, K)
+    assert _same_bits(got, again)
+    assert _same_bits(got, want)
+
+
+def test_binned_sum_kernel_one_bin_and_one_pixel_per_bin(dev):
+    """Every pixel in one bin (the longest run, 4,096 adds a chunk), and
+    every pixel in a bin of its own among 66,049."""
+    rng = np.random.default_rng(12)
+    N = 66049 - 5
+    vals = torch.from_numpy(rng.normal(size=(2, N, 6)).astype(np.float32)).to(dev)
+    for bins in (torch.zeros(2, N, dtype=torch.int32, device=dev),
+                 torch.from_numpy(np.stack([rng.permutation(66049)[:N]] * 2)
+                                  .astype(np.int32)).to(dev)):
+        got = segsum.binned_sum_cols_batched(vals, bins, 66049)
+        want = segsum.binned_sum_cols_batched_chunked(vals.cpu(), bins.cpu(), 66049)
+        assert _same_bits(got, want)
 
 
 def test_binned_sum_non_finite_on_device(dev):
@@ -79,13 +149,17 @@ def test_binned_sum_non_finite_on_device(dev):
 
 def test_binned_sum_kernel_columns_ride_independently(dev):
     """A column's sums are the same bits whatever columns ride beside it
-    (K <= 8 keeps the order it had; K = 17 takes the same order)."""
+    (K = 17 and its first 3 columns take the same order)."""
     rng = np.random.default_rng(5)
     vals = torch.from_numpy(rng.normal(size=(2, 70000, 17)).astype(np.float32)).to(dev)
     bins = torch.from_numpy(rng.integers(0, 65, (2, 70000)).astype(np.int32)).to(dev)
     wide = segsum.binned_sum_cols_batched(vals, bins, 65)
     narrow = segsum.binned_sum_cols_batched(vals[..., :3].contiguous(), bins, 65)
     assert torch.equal(wide[..., :3], narrow)
+    vals, bins = _sum_inputs(rng, 2, 256, 256, 17, 16705, "labels")
+    wide = segsum.binned_sum_cols_batched(vals, bins, 16705)
+    narrow = segsum.binned_sum_cols_batched(vals[..., :3].contiguous(), bins, 16705)
+    assert _same_bits(wide[..., :3], narrow)
 
 
 @pytest.mark.parametrize("N,K,max_labels", [(16 * 65536, 16, 256), (62407, 16, 256),
@@ -105,6 +179,37 @@ def test_segment_sum_kernel(dev, N, K, max_labels):
     assert torch.equal(got, segsum.segment_sum_auto(vals, labels.to(torch.int64), max_labels))
     assert torch.equal(got[:, -1], want[:, -1])
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, segsum.segment_sum_matmul(vals, labels, max_labels))
+    assert _same_bits(got, segsum.segment_sum_matmul_chunked(vals.cpu(), labels.cpu(),
+                                                             max_labels))
+
+
+@pytest.mark.parametrize("N,K,max_labels", [(16 * 65536, 16, 256), (66563, 6, 66049),
+                                            (66563, 17, 65), (4096 * 3 + 1, 32, 1)])
+def test_segment_sum_kernel_bit_equal_to_chunked(dev, N, K, max_labels):
+    """Label-map labels (label 0 dropped), dropped labels, +-inf and NaN:
+    the bits of the kernel's order on the CPU, the same bits on two runs."""
+    vals, bins = _sum_inputs(np.random.default_rng(N + K), 1, -(-N // 512), 512, K,
+                             max_labels + 1, "labels")
+    vals, labels = vals[0, :N].contiguous(), bins[0, :N].contiguous()
+    got = segsum.segment_sum_matmul(vals, labels, max_labels)
+    assert _same_bits(got, segsum.segment_sum_matmul(vals, labels, max_labels))
+    assert _same_bits(got, segsum.segment_sum_matmul_chunked(vals.cpu(), labels.cpu(),
+                                                             max_labels))
+
+
+def test_sum_kernels_over_a_thousand_chunks(dev):
+    """An image of more than 1,024 chunks: each bin's rows are ranked in
+    windows of 1,024 chunks; the bits stay those of the kernel's order."""
+    rng = np.random.default_rng(13)
+    N = 4096 * 1100 + 5
+    vals = torch.from_numpy(rng.normal(size=(N, 2)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(-1, 5, N).astype(np.int32)).to(dev)
+    got = segsum.segment_sum_matmul(vals, labels, 3)
+    assert _same_bits(got, segsum.segment_sum_matmul_chunked(vals.cpu(), labels.cpu(), 3))
+    got = segsum.binned_sum_cols_batched(vals[None], labels[None], 4)
+    assert _same_bits(got, segsum.binned_sum_cols_batched_chunked(vals[None].cpu(),
+                                                                  labels[None].cpu(), 4))
 
 
 def test_segment_sum_kernel_non_finite_and_limits(dev):

@@ -263,3 +263,123 @@ def test_segment_sum_matmul_validation():
         segsum.segment_sum_matmul(torch.zeros(7, 2), torch.zeros(4, dtype=torch.int32), 3)
     with pytest.raises(TypeError):
         segsum.segment_sum_matmul(torch.zeros(4, 2), torch.zeros(4), 3)
+
+
+# The sum kernels' order on the CPU (``*_chunked``): a fold from +0.0 over
+# each CHUNK-pixel chunk in pixel order, then over the chunk sums in chunk
+# order. The CUDA kernels are held bit-equal to it on the card
+# (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+
+def _kernel_order_numpy(vals, bins, n_bins):
+    """The kernel's order written out with numpy's in-order ``np.add.at``."""
+    B, N, K = vals.shape
+    out = np.zeros((B, n_bins, K), np.float32)
+    for c0 in range(0, N, segsum.CHUNK):
+        part = np.zeros((B, n_bins, K), np.float32)
+        for b in range(B):
+            sl = bins[b, c0:c0 + segsum.CHUNK]
+            ok = (sl >= 0) & (sl < n_bins)
+            np.add.at(part[b], sl[ok], vals[b, c0:c0 + segsum.CHUNK][ok])
+        out = out + part
+    return out
+
+
+def _same_bits(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(want))
+    np.testing.assert_array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+def _chunked_inputs(B, N, K, n_bins, seed):
+    rng = np.random.default_rng(seed)
+    vals = (rng.normal(0, 2, (B, N, K)) * 10.0 ** rng.integers(-3, 4, (B, N, K))).astype(
+        np.float32)
+    vals[..., -1] = 1.0
+    bins = rng.integers(-2, n_bins + 2, (B, N)).astype(np.int32)
+    bins[:, : N // 3] = rng.integers(0, min(n_bins, 3), (B, N // 3))  # long runs
+    return vals, bins
+
+
+@pytest.mark.parametrize("B,N,K,n_bins", [(2, 3 * 4096 + 123, 3, 17), (1, 2 * 4096, 6, 1),
+                                          (3, 4096 + 1, 17, 257), (1, 5 * 4096 - 7, 2, 2176)])
+def test_chunked_sums_are_the_kernel_order(B, N, K, n_bins):
+    vals, bins = _chunked_inputs(B, N, K, n_bins, seed=N + K)
+    got = segsum.binned_sum_cols_batched_chunked(torch.from_numpy(vals), torch.from_numpy(bins),
+                                                 n_bins)
+    _same_bits(got.numpy(), _kernel_order_numpy(vals, bins, n_bins))
+
+
+@pytest.mark.parametrize("B,N,K,n_bins", [(2, 3 * 4096 + 123, 3, 17), (3, 4096 + 1, 17, 257),
+                                          (1, 5 * 4096 - 7, 2, 2176)])
+def test_chunked_sums_within_the_f32_bound(B, N, K, n_bins):
+    """Against the plain (index_add_) sums: within 2 (n - 1) eps sum|t|, the
+    bound on two f32 orders of the same n terms; against a float64 sum:
+    within (n - 1) eps sum|t|. Counts exact."""
+    vals, bins = _chunked_inputs(B, N, K, n_bins, seed=N)
+    v, b = torch.from_numpy(vals), torch.from_numpy(bins)
+    got = segsum.binned_sum_cols_batched_chunked(v, b, n_bins).numpy().astype(np.float64)
+    plain = segsum.binned_sum_cols_batched_plain(v, b, n_bins).numpy().astype(np.float64)
+    f64 = segsum.binned_sum_cols_batched_plain(v.double(), b, n_bins).numpy()
+    mag = segsum.binned_sum_cols_batched_plain(v.abs().double(), b, n_bins).numpy()
+    n = mag[..., -1:]  # the count column
+    eps = 2.0 ** -23
+    np.testing.assert_array_equal(got[..., -1], f64[..., -1])
+    assert (np.abs(got - f64) <= np.maximum(n - 1, 0) * eps * mag).all()
+    assert (np.abs(got - plain) <= 2 * np.maximum(n - 1, 0) * eps * mag).all()
+
+
+def test_skipping_absent_chunks_changes_no_bit():
+    """The kernels' second fold skips the chunks in which a bin has no
+    pixel. Neither fold from +0.0 makes -0.0, so the skipped +0.0 is the
+    identity: the sparse fold has the dense fold's bits, with -0.0, +-inf
+    and NaN among the values."""
+    rng = np.random.default_rng(3)
+    B, N, K, n_bins = 2, 6 * 4096 + 50, 4, 40
+    vals = rng.normal(0, 1, (B, N, K)).astype(np.float32)
+    bins = rng.integers(0, n_bins, (B, N)).astype(np.int32)
+    bins[:, :4096][bins[:, :4096] >= 20] -= 20  # bins 20.. miss the first chunk
+    bins[:, 3 * 4096:4 * 4096][bins[:, 3 * 4096:4 * 4096] < 10] += 10  # bins ..9 miss the 4th
+    vals[bins == 5] = -0.0  # a bin of -0.0 only
+    vals[:, 100, 1], vals[:, 9000, 2], vals[:, 20000, 3] = np.inf, -np.inf, np.nan
+    vals[0, 5000, 0], vals[1, 5000, 0] = np.inf, -0.0
+    dense = segsum.binned_sum_cols_batched_chunked(torch.from_numpy(vals),
+                                                   torch.from_numpy(bins), n_bins).numpy()
+    sparse = np.zeros((B, n_bins, K), np.float32)
+    for c0 in range(0, N, segsum.CHUNK):
+        sl = slice(c0, c0 + segsum.CHUNK)
+        part = segsum.binned_sum_cols_batched_plain(torch.from_numpy(vals[:, sl]),
+                                                    torch.from_numpy(bins[:, sl]),
+                                                    n_bins).numpy()
+        present = np.zeros((B, n_bins), bool)
+        for b in range(B):
+            present[b, np.unique(bins[b, sl])] = True
+        assert not (np.signbit(part) & (part == 0)).any()  # no chunk sum is -0.0
+        sparse = np.where(present[..., None], sparse + part, sparse)
+    assert (~np.isnan(dense)).any() and np.isnan(dense).any() and np.isinf(dense).any()
+    assert (dense[:, 5] == 0).all() and not np.signbit(dense[:, 5]).any()
+    _same_bits(sparse, dense)
+
+
+@pytest.mark.parametrize("N,K,max_labels", [(3 * 4096 + 5, 16, 24), (4096, 3, 1)])
+def test_segment_sum_chunked_is_the_kernel_order(N, K, max_labels):
+    vals, labels = _segment_inputs(N, K, max_labels, seed=N)
+    got = segsum.segment_sum_matmul_chunked(torch.from_numpy(vals), torch.from_numpy(labels),
+                                            max_labels)
+    want = _kernel_order_numpy(vals[None], labels[None] - 1, max_labels)[0]
+    _same_bits(got.numpy(), want)
+
+
+@pytest.mark.parametrize("B,N,K,n_bins", [(16, 65536, 6, 16705), (1, 1080 * 1080, 6, 66049),
+                                          (16, 65536, 32, 65), (1, 1, 1, 2**31 - 1)])
+def test_sum_scratch_follows_the_input(B, N, K, n_bins):
+    """The sum kernels' scratch: a row of K sums, a bin and a list entry for
+    each possible run (at most min(CHUNK, n_bins) a chunk), so no more rows
+    than B x (N + CHUNK - 1) and than the first kernel's dense B x n_chunks x
+    n_bins partial; then a few words per chunk and per (image, bin)."""
+    n_f, n_i, n_l = segsum.sum_scratch_sizes(B, N, K, n_bins)
+    n_chunks = -(-N // segsum.CHUNK)
+    rows = n_f // K
+    assert n_f == rows * K and rows <= B * (N + segsum.CHUNK - 1)
+    assert rows <= B * n_chunks * n_bins and n_l <= rows
+    assert n_f + n_i + 2 * n_l <= rows * (K + 4) + B * n_chunks + 4 * B * n_bins + 2
