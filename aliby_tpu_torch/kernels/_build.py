@@ -108,5 +108,7 @@ def check(err: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device
+    (PyTorch's own raw-stream query: ``torch.cuda.current_stream`` builds a
+    Stream object, several microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

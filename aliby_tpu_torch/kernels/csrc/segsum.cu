@@ -76,24 +76,59 @@
 // and max of each column, each (B, n_bins, K); empty bins hold (+inf, -inf),
 // bins outside [0, n_bins) are dropped, and a NaN value makes NaN in its own
 // (bin, column) only. The TPU kernel masks a one-hot tile and reduces it on
-// the vector unit. Here a block takes one image and one chunk of pixels and
-// folds them into a shared-memory table of n_bins x K minima and maxima with
-// shared atomicMin/atomicMax on an order-preserving int32 encoding of the
-// float (a plain read first skips the atomic when the value cannot win);
-// NaN sets a per-(bin, column) flag instead. The block tables merge into
-// the output with global atomics on the same encoding. Min and max do not
-// depend on order, so the result is exact and the same bits on every run.
-// Bound: device-memory bytes (one read of values and bins).
+// the vector unit. Floats are compared through an order-preserving int32 key
+// (f2key: -0.0 just below +0.0), so shared atomicMin/atomicMax apply; a NaN
+// takes the largest max key (INT32_MAX, above +inf's) and leaves the min key
+// alone, and a max key above +inf's decodes to NaN in both outputs. Min and
+// max do not depend on order, so the result is exact and the same bits on
+// every run, whichever block finishes last.
+// Design, one launch a call (binned_minmax_kernel; grid: G blocks per image
+// x images, 256 threads, 4 blocks an SM). Each block walks tiles of kTile =
+// 2,048 pixels of its image (tile g, g + G, ...); a thread takes 8
+// consecutive pixels, issuing 16-byte loads of their bins and, at K = 1 and
+// 2 (compiled apart; other K read a column at a time), of their values
+// where the addresses allow, all before it uses any. It folds its pixels
+// into runs of one bin in registers and updates the block's shared table of
+// n_bins x K minimum and maximum keys once per run and column, with an
+// atomic only where a plain read shows it can win: on label images
+// (objects are contiguous, most pixels are background) that is one update
+// for 8 pixels where the first kernel made one per pixel. Aggregating the
+// runs across the warp first (__match_any_sync, or a reduction when every
+// ending run of the warp is in one bin) was slower on the feature bank's
+// label images than these per-lane updates, and far slower on uniform
+// bins. Each block then writes its table to scratch; the last block of each
+// image to finish (an integer ticket per image, g_minmax_tickets, which
+// that block sets back to 0 for the next call) folds the G tables with
+// 16-byte loads and writes the decoded minima and maxima. No init or
+// decode launch and no memset. Scratch (allocated by the wrapper,
+// ops/segsum.py minmax_scratch): B x G tables of 2 x n_bins x K keys, each
+// rounded up to 16 bytes, with G chosen there to make one wave (4 blocks
+// per SM) and to keep the last block's fold at most 65,536 keys a table.
+// Calls on one device must be ordered (one stream), since they share the
+// tickets. Bound on the H100: device-memory bytes (one read of values and
+// bins). At the feature bank's 16 x 256^2 pixels the loads alone run near
+// that bound; the run updates and the chain that ends a call (tables,
+// ticket, the last block's fold) take the rest. Shared memory: 2 x n_bins
+// x K x 4 bytes, at most 32 KB.
 //
 // table_lookup replaces pallas_segsum.py table_lookup_batched
 // (_lookup_kernel): (B, L, K) f32 table, (B, N) int32 bins -> (B, N, K)
 // with out[p] = table[bins[p]]; a bin outside [0, L) gives 0 and a
 // non-finite entry gives NaN (the TPU kernel's indicator rule, so +-inf
-// becomes NaN). The TPU kernel is a one-hot matmul on the MXU; here each
-// block stages its image's table in shared memory and its threads walk the
-// output elements of a chunk of pixels in order, so loads of the bins and
-// stores of the output are coalesced. Bound: device-memory bytes (the bins
-// read once, the output written once).
+// becomes NaN). The TPU kernel is a one-hot matmul on the MXU. Here
+// (table_lookup_kernel; grid: chunks of `chunk` pixels x images, 256
+// threads) each block stages its image's table in shared memory (non-finite
+// entries as NaN) and its chunk's bins (16-byte loads where aligned), then
+// writes the chunk's chunk x K output floats as 16-byte stores, neighbouring
+// threads on neighbouring addresses, with scalar stores only for the few
+// floats before the first 16-byte boundary and after the last (an image
+// whose output does not start on one: N x K not a multiple of 4). K = 1, 2,
+// 3 and 5 (the widths the feature bank uses) are compiled apart, so the
+// pixel of an output float is a division by a constant; one instance takes
+// any other K. At a chunk of 1,024 pixels a 16-field call is 1,024 blocks,
+// about 8 per SM. Bound on the H100: device-memory bytes (the bins read
+// once, the output written once). Shared memory: (L x K + chunk) x 4 bytes,
+// above 48 KB (L x K near 12,288) after an opt-in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -443,99 +478,222 @@ __device__ __forceinline__ float key2f(int32_t k) {
   return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
-__global__ void minmax_init_kernel(int32_t* __restrict__ mn, int32_t* __restrict__ mx,
-                                   int32_t* __restrict__ nan, int64_t total) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    mn[i] = kPosInfKey;
-    mx[i] = kNegInfKey;
-    nan[i] = 0;
+constexpr int32_t kNanKey = INT32_MAX;  // max key of NaN: above every other key
+constexpr int kMinmaxThreads = 256;
+constexpr int kPx = 8;  // consecutive pixels a thread takes at a time
+constexpr int kTile = kPx * kMinmaxThreads;  // pixels a block takes at a time
+
+// one ticket per image: blocks of the image that have written their table
+__device__ unsigned int g_minmax_tickets[65535];
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Folds columns k0 .. k0 + NC - 1 of a thread's kPx pixels (x[u * NC + c])
+// into the block's tables s_tab (minima, then maxima at + slots): runs of
+// one bin in registers, and at each pixel that ends a run, one update of
+// the table per run and column, an atomic only where a plain read shows it
+// can win.
+template <int NC>
+__device__ __forceinline__ void fold_runs(const int (&bin)[kPx], const float (&x)[kPx * NC],
+                                          int k0, int K, int slots, int32_t* s_tab) {
+  int32_t run_mn[NC], run_mx[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) run_mn[c] = kPosInfKey, run_mx[c] = kNegInfKey;
+#pragma unroll
+  for (int u = 0; u < kPx; ++u) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float f = x[u * NC + c];
+      const bool nan = f != f;
+      const int32_t key = f2key(f);
+      run_mn[c] = min(run_mn[c], nan ? kPosInfKey : key);
+      run_mx[c] = max(run_mx[c], nan ? kNanKey : key);
+    }
+    const bool ends = bin[u] >= 0 && (u == kPx - 1 || bin[u + 1] != bin[u]);
+    if (ends) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int slot = bin[u] * K + k0 + c;
+        if (run_mn[c] < s_tab[slot]) atomicMin(&s_tab[slot], run_mn[c]);
+        if (run_mx[c] > s_tab[slots + slot]) atomicMax(&s_tab[slots + slot], run_mx[c]);
+      }
+    }
+    if (ends || bin[u] < 0) {  // a new run starts at the next pixel
+#pragma unroll
+      for (int c = 0; c < NC; ++c) run_mn[c] = kPosInfKey, run_mx[c] = kNegInfKey;
+    }
   }
 }
 
-__global__ void binned_minmax_kernel(const float* __restrict__ vals,
-                                     const int32_t* __restrict__ bins,
-                                     int32_t* __restrict__ mn, int32_t* __restrict__ mx,
-                                     int32_t* __restrict__ nan, int64_t N, int K,
-                                     int n_bins, int64_t chunk) {
+// KT = K for K = 1 and 2 (all columns folded together, the pixels' values
+// read 16 bytes at a time where aligned); KT = 0 takes any K (K_rt), a
+// column at a time. Dynamic shared memory: 2 * n_bins * K int32. part: B *
+// G tables of C = round_up(2 * n_bins * K, 4) keys, the minima, then the
+// maxima, then padding.
+template <int KT>
+__global__ void __launch_bounds__(kMinmaxThreads, 4)
+binned_minmax_kernel(const float* __restrict__ vals, const int32_t* __restrict__ bins,
+                     float* __restrict__ mn_out, float* __restrict__ mx_out,
+                     int32_t* __restrict__ part, int64_t N, int K_rt, int n_bins, int G) {
   extern __shared__ int32_t s_tab[];
-  const int T = n_bins * K;
-  int32_t* s_min = s_tab;
-  int32_t* s_max = s_tab + T;
-  int32_t* s_nan = s_tab + 2 * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    s_min[i] = kPosInfKey;
-    s_max[i] = kNegInfKey;
-    s_nan[i] = 0;
+  __shared__ bool s_last;
+  const int K = KT ? KT : K_rt;
+  const int slots = n_bins * K;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < slots; i += blockDim.x) {
+    s_tab[i] = kPosInfKey;
+    s_tab[slots + i] = kNegInfKey;
   }
   __syncthreads();
 
   const int b = blockIdx.y;
-  const int64_t start = (int64_t)blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
   const float* v = vals + (int64_t)b * N * K;
   const int32_t* bb = bins + (int64_t)b * N;
-  for (int64_t p = start + threadIdx.x; p < end; p += blockDim.x) {
-    const int bin = bb[p];
-    if (bin < 0 || bin >= n_bins) continue;
-    for (int k = 0; k < K; ++k) {
-      const float x = v[p * K + k];
-      const int slot = bin * K + k;
-      if (isnan(x)) {
-        atomicOr(&s_nan[slot], 1);
-        continue;
+  const bool vec_bins = aligned16(bb);
+  const bool vec_vals = KT && aligned16(v);
+  for (int64_t t0 = (int64_t)blockIdx.x * kTile; t0 < N; t0 += (int64_t)G * kTile) {
+    const int64_t p0 = t0 + kPx * tid;
+    const bool full = p0 + kPx <= N;
+    // the bins and (K = 1, 2) the values of the thread's pixels, every load
+    // issued before any is used
+    constexpr int NC = KT ? KT : 1;
+    int bin[kPx];
+    float x[kPx * NC];
+    if (vec_bins && full) {
+      const int4* q = reinterpret_cast<const int4*>(bb + p0);
+#pragma unroll
+      for (int i = 0; i < kPx / 4; ++i) {
+        const int4 w = q[i];
+        bin[4 * i] = w.x, bin[4 * i + 1] = w.y, bin[4 * i + 2] = w.z, bin[4 * i + 3] = w.w;
       }
-      const int32_t key = f2key(x);
-      if (key < s_min[slot]) atomicMin(&s_min[slot], key);
-      if (key > s_max[slot]) atomicMax(&s_max[slot], key);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kPx; ++u) bin[u] = p0 + u < N ? bb[p0 + u] : -1;
+    }
+    if (KT && vec_vals && full) {
+      const float4* q = reinterpret_cast<const float4*>(v + p0 * NC);
+#pragma unroll
+      for (int i = 0; i < kPx * NC / 4; ++i) {
+        const float4 f = q[i];
+        x[4 * i] = f.x, x[4 * i + 1] = f.y, x[4 * i + 2] = f.z, x[4 * i + 3] = f.w;
+      }
+    } else if (KT) {
+#pragma unroll
+      for (int i = 0; i < kPx * NC; ++i) x[i] = p0 + i / NC < N ? v[p0 * NC + i] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kPx; ++u)
+      if ((unsigned)bin[u] >= (unsigned)n_bins) bin[u] = -1;  // dropped
+    if (KT) {
+      fold_runs<NC>(bin, x, 0, NC, slots, s_tab);
+    } else {
+      for (int k = 0; k < K; ++k) {
+        float xk[kPx];
+#pragma unroll
+        for (int u = 0; u < kPx; ++u) xk[u] = p0 + u < N ? v[(p0 + u) * K + k] : 0.0f;
+        fold_runs<1>(bin, xk, k, K, slots, s_tab);
+      }
     }
   }
   __syncthreads();
 
-  const int64_t base = (int64_t)b * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    if (s_min[i] != kPosInfKey) atomicMin(&mn[base + i], s_min[i]);
-    if (s_max[i] != kNegInfKey) atomicMax(&mx[base + i], s_max[i]);
-    if (s_nan[i]) atomicOr(&nan[base + i], 1);
+  // this block's table to scratch; the last block of the image to finish
+  // folds the G tables into its own and writes the result
+  const int C = (2 * slots + 3) & ~3;
+  int32_t* pb = part + (int64_t)b * G * C;
+  for (int i = tid; i < 2 * slots; i += blockDim.x) pb[(int64_t)blockIdx.x * C + i] = s_tab[i];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&g_minmax_tickets[b], 1u) == (unsigned)G - 1;
+  __syncthreads();
+  if (!s_last) return;
+  if (tid == 0) g_minmax_tickets[b] = 0;  // every block of the image has counted itself
+  const int4* p4 = reinterpret_cast<const int4*>(pb);
+  const int total = G * C / 4;  // G * C < 2^31: G <= 65,535, C <= 8,196
+  for (int q0 = tid; q0 < total; q0 += 8 * blockDim.x) {
+    int4 w[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int q = q0 + r * blockDim.x;
+      if (q < total) w[r] = __ldcg(p4 + q);
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int q = q0 + r * blockDim.x;
+      if (q >= total) break;
+      const int j0 = 4 * q % C;
+      const int32_t key[4] = {w[r].x, w[r].y, w[r].z, w[r].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = j0 + c;
+        if (j < slots) {
+          if (key[c] < s_tab[j]) atomicMin(&s_tab[j], key[c]);
+        } else if (j < 2 * slots && key[c] > s_tab[j]) {
+          atomicMax(&s_tab[j], key[c]);
+        }
+      }
+    }
   }
-}
-
-// Decode the keys in place: mn and mx then hold the f32 results.
-__global__ void minmax_finish_kernel(int32_t* __restrict__ mn, int32_t* __restrict__ mx,
-                                     const int32_t* __restrict__ nan, int64_t total) {
+  __syncthreads();
   const float qnan = __int_as_float(0x7fc00000);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    const bool n = nan[i] != 0;
-    reinterpret_cast<float*>(mn)[i] = n ? qnan : key2f(mn[i]);
-    reinterpret_cast<float*>(mx)[i] = n ? qnan : key2f(mx[i]);
+  for (int i = tid; i < slots; i += blockDim.x) {
+    const int32_t mx = s_tab[slots + i];
+    const bool nan = mx > kPosInfKey;
+    mn_out[(int64_t)b * slots + i] = nan ? qnan : key2f(s_tab[i]);
+    mx_out[(int64_t)b * slots + i] = nan ? qnan : key2f(mx);
   }
 }
 
-__global__ void table_lookup_kernel(const float* __restrict__ table,
-                                    const int32_t* __restrict__ bins,
-                                    float* __restrict__ out, int64_t N, int L, int K,
-                                    int chunk) {
-  extern __shared__ float s_row[];
-  const int b = blockIdx.y;
+// KT = K for the widths the feature bank uses; KT = 0 takes any K (K_rt).
+// Dynamic shared memory: L * K floats, then `chunk` ints.
+template <int KT>
+__global__ void __launch_bounds__(256)
+table_lookup_kernel(const float* __restrict__ table, const int32_t* __restrict__ bins,
+                    float* __restrict__ out, int64_t N, int L, int K_rt, int chunk) {
+  extern __shared__ __align__(16) float s_row[];
+  const int K = KT ? KT : K_rt;
+  int32_t* s_bin = reinterpret_cast<int32_t*>(s_row + L * K);
+  const int b = blockIdx.y, tid = threadIdx.x;
   const float qnan = __int_as_float(0x7fc00000);
   const float* t = table + (int64_t)b * L * K;
-  for (int i = threadIdx.x; i < L * K; i += blockDim.x) {
+  for (int i = tid; i < L * K; i += blockDim.x) {
     const float x = t[i];
     s_row[i] = isfinite(x) ? x : qnan;
   }
+  const int64_t start = (int64_t)blockIdx.x * chunk;
+  const int len = (int)(N - start < chunk ? N - start : chunk);
+  const int32_t* bb = bins + (int64_t)b * N + start;
+  int p = 0;
+  if (aligned16(bb)) {
+    const int4* q = reinterpret_cast<const int4*>(bb);
+    for (int i = tid; i < len / 4; i += blockDim.x) {
+      const int4 w = q[i];
+      s_bin[4 * i] = w.x, s_bin[4 * i + 1] = w.y, s_bin[4 * i + 2] = w.z, s_bin[4 * i + 3] = w.w;
+    }
+    p = len & ~3;
+  }
+  for (int i = p + tid; i < len; i += blockDim.x) s_bin[i] = bb[i];
   __syncthreads();
 
-  const int64_t start = (int64_t)blockIdx.x * chunk;
-  const int64_t end = start + chunk < N ? start + chunk : N;
-  const int n_out = (int)(end - start) * K;
-  const int32_t* bb = bins + (int64_t)b * N + start;
+  // output float e of the chunk: pixel e / K, column e % K
+  auto at = [&](int e) {
+    const int px = e / K, bin = s_bin[px];
+    return (unsigned)bin < (unsigned)L ? s_row[bin * K + (e - px * K)] : 0.0f;
+  };
   float* o = out + ((int64_t)b * N + start) * K;
-  for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-    const int p = e / K;
-    const int bin = bb[p];
-    o[e] = (bin >= 0 && bin < L) ? s_row[bin * K + (e - p * K)] : 0.0f;
+  const int n = len * K;
+  const int head = min((int)((16 - (reinterpret_cast<uintptr_t>(o) & 15)) & 15) / 4, n);
+  if (tid < head) o[tid] = at(tid);
+  const int nq = (n - head) / 4;
+  float4* o4 = reinterpret_cast<float4*>(o + head);
+#pragma unroll 4
+  for (int q = tid; q < nq; q += blockDim.x) {
+    const int e = head + 4 * q;
+    o4[q] = make_float4(at(e), at(e + 1), at(e + 2), at(e + 3));
   }
+  for (int e = head + 4 * nq + tid; e < n; e += blockDim.x) o[e] = at(e);
 }
 
 int grid_for(int64_t total) {
@@ -613,43 +771,66 @@ extern "C" int segment_sum(const float* vals, const int32_t* labels, float* run_
   return sum_runs(vals, labels, 1, run_sums, ints, listed, out, 1, N, K, max_labels, stream);
 }
 
-// mn, mx and nan hold B * n_bins * K int32 each; on return mn and mx hold
-// the f32 minima and maxima. 3 * n_bins * K * 4 bytes of shared memory must
-// fit the default 48 KB (the wrapper checks).
-extern "C" int binned_minmax(const float* vals, const int32_t* bins, int32_t* mn,
-                             int32_t* mx, int32_t* nan, int B, int64_t N, int K,
-                             int n_bins, int64_t chunk, void* stream) {
-  if (B < 1 || N < 1 || K < 1 || n_bins < 1 || chunk < 1 || B > 65535 ||
+// mn and mx receive B * n_bins * K floats each; part holds B * G *
+// round_up(2 * n_bins * K, 4) int32 of scratch, 16-byte aligned (G blocks
+// per image, chosen by the wrapper).
+// One launch; 2 * n_bins * K * 4 bytes of shared memory (at most 32 KB).
+extern "C" int binned_minmax(const float* vals, const int32_t* bins, float* mn, float* mx,
+                             int32_t* part, int B, int64_t N, int K, int n_bins, int64_t G,
+                             void* stream) {
+  if (B < 1 || N < 1 || K < 1 || n_bins < 1 || G < 1 || G > 65535 || B > 65535 ||
       (int64_t)n_bins * K > 4096)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)2 * n_bins * K * sizeof(int32_t);
+  const dim3 grid((unsigned)G, B);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K == 1)
+    binned_minmax_kernel<1><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part, N, K,
+                                                               n_bins, (int)G);
+  else if (K == 2)
+    binned_minmax_kernel<2><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part, N, K,
+                                                               n_bins, (int)G);
+  else
+    binned_minmax_kernel<0><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part, N, K,
+                                                               n_bins, (int)G);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int KT>
+cudaError_t launch_lookup(const float* table, const int32_t* bins, float* out, int B, int64_t N,
+                          int L, int K, int chunk, cudaStream_t s) {
+  const size_t smem = ((size_t)L * K + chunk) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        table_lookup_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((unsigned)((N + chunk - 1) / chunk), B);
+  table_lookup_kernel<KT><<<grid, 256, smem, s>>>(table, bins, out, N, L, K, chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out holds B * N * K floats; `chunk` pixels a block, a multiple of 4 up to
+// 4,096. (L * K + chunk) * 4 bytes of shared memory.
+extern "C" int table_lookup(const float* table, const int32_t* bins, float* out, int B,
+                            int64_t N, int L, int K, int chunk, void* stream) {
+  if (B < 1 || N < 1 || L < 1 || K < 1 || chunk < 4 || chunk > 4096 || chunk % 4 ||
+      B > 65535 || (int64_t)L * K > 12288)
     return (int)cudaErrorInvalidValue;
   const int64_t n_chunks = (N + chunk - 1) / chunk;
   if (n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t total = (int64_t)B * n_bins * K;
-  minmax_init_kernel<<<grid_for(total), 256, 0, s>>>(mn, mx, nan, total);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)3 * n_bins * K * sizeof(int32_t);
-  dim3 grid((unsigned)n_chunks, B);
-  binned_minmax_kernel<<<grid, 256, smem, s>>>(vals, bins, mn, mx, nan, N, K, n_bins, chunk);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  minmax_finish_kernel<<<grid_for(total), 256, 0, s>>>(mn, mx, nan, total);
-  return (int)cudaGetLastError();
-}
-
-// out holds B * N * K floats. L * K * 4 bytes of shared memory must fit the
-// default 48 KB (the wrapper checks).
-extern "C" int table_lookup(const float* table, const int32_t* bins, float* out, int B,
-                            int64_t N, int L, int K, int chunk, void* stream) {
-  if (B < 1 || N < 1 || L < 1 || K < 1 || chunk < 1 || B > 65535 ||
-      (int64_t)L * K > 12288 || (int64_t)chunk * K > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  const int64_t n_chunks = (N + chunk - 1) / chunk;
-  if (n_chunks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)L * K * sizeof(float);
-  dim3 grid((unsigned)n_chunks, B);
-  table_lookup_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(table, bins, out, N, L, K,
-                                                                chunk);
-  return (int)cudaGetLastError();
+  cudaError_t e;
+  switch (K) {
+    case 1: e = launch_lookup<1>(table, bins, out, B, N, L, K, chunk, s); break;
+    case 2: e = launch_lookup<2>(table, bins, out, B, N, L, K, chunk, s); break;
+    case 3: e = launch_lookup<3>(table, bins, out, B, N, L, K, chunk, s); break;
+    case 5: e = launch_lookup<5>(table, bins, out, B, N, L, K, chunk, s); break;
+    default: e = launch_lookup<0>(table, bins, out, B, N, L, K, chunk, s);
+  }
+  return (int)e;
 }

@@ -28,12 +28,15 @@ from aliby_tpu_torch.kernels import _build
 MAX_COLS = 32  # segsum.cu kMaxK
 CHUNK = 4096  # segsum.cu kChunk: the sum kernels' chunk (their summation order)
 MAX_ROWS = 2**31 - 1  # the sum kernels' run rows must stay below it (int32 row indices)
-LOOKUP_CHUNK = 8192  # pixels per block of the lookup kernel
-MINMAX_MAX_SLOTS = 4096  # n_bins * K: three int32 tables in 48 KB of shared memory
-LOOKUP_MAX_SLOTS = 12288  # L * K: one f32 table in 48 KB of shared memory
+LOOKUP_CHUNK = 1024  # pixels per block of the lookup kernel: ~8 blocks per SM at 16 x 256^2
+MINMAX_MAX_SLOTS = 4096  # n_bins * K: two int32 tables in 32 KB of shared memory
+LOOKUP_MAX_SLOTS = 12288  # L * K: the f32 table staged in 48 KB of shared memory
+MINMAX_TILE = 2048  # segsum.cu kTile: pixels a min/max block takes at a time
+MINMAX_BLOCKS = 132 * 4  # min/max blocks in one wave on an H100 (132 SMs, 4 blocks each)
+MINMAX_FOLD = 65536  # keys per table the last block of an image folds, at most
 
 
-def _prep(values: torch.Tensor, bins: torch.Tensor):
+def _check_pair(values: torch.Tensor, bins: torch.Tensor) -> None:
     if bins.dim() < 1 or values.shape[:-1] != bins.shape:
         raise ValueError(
             f"values (B, ..., K) and bins (B, ...) disagree: "
@@ -42,9 +45,15 @@ def _prep(values: torch.Tensor, bins: torch.Tensor):
     if values.device != bins.device:
         raise ValueError("values and bins must share a device")
     _check_int(bins)
+
+
+def _prep(values: torch.Tensor, bins: torch.Tensor):
+    _check_pair(values, bins)
     B = bins.shape[0]
     K = values.shape[-1]
-    vals = values.reshape(B, -1, K).to(torch.float32)
+    vals = values.reshape(B, -1, K)
+    if vals.dtype != torch.float32:
+        vals = vals.float()
     return vals, bins.reshape(B, -1), B, vals.shape[1], K
 
 
@@ -54,9 +63,11 @@ def _check_int(bins: torch.Tensor) -> None:
 
 
 def _device_of(t: torch.Tensor) -> str:
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type != "cpu":
         raise ValueError(f"unsupported device {t.device}")
-    return t.device.type
+    return "cpu"
 
 
 def _int32_bins(flat: torch.Tensor, n_bins: int) -> torch.Tensor:
@@ -257,35 +268,51 @@ def binned_minmax_batched_plain(values: torch.Tensor, bins: torch.Tensor, n_bins
     return mn, mx
 
 
+def minmax_scratch(B: int, N: int, slots: int) -> tuple[int, int]:
+    """Blocks per image of the min/max kernel and the int32 words of its
+    scratch. Blocks: enough for ``MINMAX_BLOCKS`` over the call, no more
+    than the image's tiles, and few enough that the last block's fold of
+    the blocks' tables stays within ``MINMAX_FOLD`` keys (``slots`` =
+    n_bins * K). Scratch: a table of 2 * slots keys per block, each rounded
+    up to 16 bytes."""
+    G = max(1, min(-(-N // MINMAX_TILE), -(-MINMAX_BLOCKS // B), MINMAX_FOLD // slots))
+    return G, B * G * (-(-2 * slots // 4) * 4)
+
+
 def binned_minmax_batched(values: torch.Tensor, bins: torch.Tensor, n_bins: int):
     """Batched per-bin (min, max) of each value column: (B, ..., K) values,
     (B, ...) int bins -> two (B, n_bins, K) f32. Empty bins hold
     (+inf, -inf); bins outside [0, n_bins) are dropped; a NaN value makes
     NaN in its own (bin, column) only. On CUDA ``n_bins * K`` is at most
-    4096 (the kernel's shared-memory table)."""
+    4096 (the kernel's shared-memory table), -0.0 counts as below +0.0, and
+    a call is one launch."""
     if _device_of(values) == "cpu":
         return binned_minmax_batched_plain(values, bins, n_bins)
-    vals, flat, B, N, K = _prep(values, bins)
-    if n_bins < 1 or K < 1:
-        raise ValueError(f"n_bins and K must be positive, got {n_bins}, {K}")
-    if n_bins * K > MINMAX_MAX_SLOTS:
+    _check_pair(values, bins)  # the kernel reads flat memory: no reshape
+    B, K = bins.shape[0], values.shape[-1]
+    if B < 1 or n_bins < 1 or K < 1:
+        raise ValueError(f"B, n_bins and K must be positive, got {B}, {n_bins}, {K}")
+    slots = n_bins * K
+    if slots > MINMAX_MAX_SLOTS:
         raise ValueError(
-            f"n_bins * K = {n_bins * K} exceeds the kernel's shared-memory table "
+            f"n_bins * K = {slots} exceeds the kernel's shared-memory table "
             f"({MINMAX_MAX_SLOTS} slots)"
         )
-    vals = vals.contiguous()
-    flat = _int32_bins(flat, n_bins)
-    keys = torch.empty(3, B, n_bins, K, dtype=torch.int32, device=vals.device)
+    vals = (values if values.dtype == torch.float32 else values.float()).contiguous()
+    flat = _int32_bins(bins, n_bins)
+    N = flat.numel() // B
+    G, n_part = minmax_scratch(B, N, slots)
+    out = vals.new_empty((2, B, n_bins, K))
+    part = flat.new_empty(n_part)
     lib = _build.load("segsum")
+    mn = out.data_ptr()
     _build.check(
-        lib.binned_minmax(vals.data_ptr(), flat.data_ptr(), keys[0].data_ptr(),
-                          keys[1].data_ptr(), keys[2].data_ptr(), B, N, K, n_bins, CHUNK,
-                          _build.stream_of(vals)),
+        lib.binned_minmax(vals.data_ptr(), flat.data_ptr(), mn, mn + 4 * B * slots,
+                          part.data_ptr(), B, N, K, n_bins, G, _build.stream_of(vals)),
         "binned_minmax_batched",
     )
     binned_minmax_batched.launches += 1
-    out = keys[:2].view(torch.float32)  # decoded in place by the kernel
-    return out[0], out[1]
+    return out.unbind(0)
 
 
 binned_minmax_batched.launches = 0
@@ -300,14 +327,14 @@ def _prep_lookup(table: torch.Tensor, bins: torch.Tensor):
     if table.device != bins.device:
         raise ValueError("table and bins must share a device")
     _check_int(bins)
-    return table.to(torch.float32), bins.reshape(bins.shape[0], -1)
+    return table if table.dtype == torch.float32 else table.float()
 
 
 def table_lookup_batched_plain(table: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`table_lookup_batched` (indexing)."""
-    tab, flat = _prep_lookup(table, bins)
+    tab = _prep_lookup(table, bins)
     B, L, K = tab.shape
-    flat = flat.to(torch.int64)
+    flat = bins.reshape(B, -1).to(torch.int64)
     valid = (flat >= 0) & (flat < L)
     tab = torch.where(torch.isfinite(tab), tab, torch.full((), float("nan"), device=tab.device))
     got = torch.gather(tab, 1, flat.clamp(0, L - 1).unsqueeze(-1).expand(-1, -1, K))
@@ -323,19 +350,18 @@ def table_lookup_batched(table: torch.Tensor, bins: torch.Tensor) -> torch.Tenso
     ``L * K`` is at most 12288 (the table staged in shared memory)."""
     if _device_of(table) == "cpu":
         return table_lookup_batched_plain(table, bins)
-    tab, flat = _prep_lookup(table, bins)
+    tab = _prep_lookup(table, bins).contiguous()
     B, L, K = tab.shape
-    if L < 1 or K < 1:
+    if B < 1 or L < 1 or K < 1:
         raise ValueError(f"empty table {tuple(tab.shape)}")
     if L * K > LOOKUP_MAX_SLOTS:
         raise ValueError(
             f"L * K = {L * K} exceeds the kernel's shared-memory table "
             f"({LOOKUP_MAX_SLOTS} slots)"
         )
-    tab = tab.contiguous()
-    flat = _int32_bins(flat, L)
-    N = flat.shape[1]
-    out = torch.empty(B, N, K, dtype=torch.float32, device=tab.device)
+    flat = _int32_bins(bins, L)
+    N = flat.numel() // B
+    out = tab.new_empty(bins.shape + (K,))
     if N:
         lib = _build.load("segsum")
         _build.check(
@@ -344,7 +370,7 @@ def table_lookup_batched(table: torch.Tensor, bins: torch.Tensor) -> torch.Tenso
             "table_lookup_batched",
         )
         table_lookup_batched.launches += 1
-    return out.reshape(bins.shape + (K,))
+    return out
 
 
 table_lookup_batched.launches = 0

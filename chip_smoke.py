@@ -21,7 +21,14 @@ Phases, in order; any failure exits non-zero:
    66,049), bit-equal to the CPU's; the column grouping of
    ``reductions.binned_sum_cols`` at K = 367 against the plain sum and, bit
    for bit, against the same grouping on the CPU in the kernel's order, with
-   a non-finite value poisoning all 367 columns of its bin.
+   a non-finite value poisoning all 367 columns of its bin. Per-bin min/max
+   and the lookup also on adversarial inputs: label images (objects on a
+   background, the bbox's coordinate columns among them), every pixel in one
+   bin, one pixel per bin, a ragged N (odd, N x K not a multiple of 4, one
+   image and three), the limits n_bins x K = 4,096 and L x K = 12,288, every
+   lookup K from 1 to 8 and 13, +-inf, NaN and signed zeros: the lookup the
+   same bits as plain, min/max equal with NaN positions equal, and -0.0 below
+   +0.0 (a bin holding both: min -0.0, max +0.0).
 3. slice 1 (segmentation): eight 256x256 five-channel Cell Painting fields,
    objects ``nuclei`` (channel 0, second channel 3) and ``cell`` (channel 3,
    second channel 0) through ``dispatch_segmenter("cellpose")`` as one batch
@@ -50,14 +57,19 @@ Phases, in order; any failure exits non-zero:
    the same bits on the card and the CPU. ``segment_sum_matmul`` has no caller on any path, here as
    in the JAX package: phases 2 and 4 run it.
 4. report: per-kernel times on the default-bank step's own inputs (median of 21
-   runs, CUDA events) beside the plain version, the bound and the library
-   call, each kernel's output held to the plain version's on those inputs
+   runs, CUDA events, in turns with the plain version and the library call)
+   beside theirs and the bound, each kernel's output held to the plain version's on those inputs
    as in phase 2 (the sums also bit-equal to the kernel's order on the CPU
    and across runs), the costes histogram of the 1080x1080 field's wide
    pass (66,049 bins), and ``segment_sum_matmul`` at phase 2's shape; each
    main-path sum no slower than ``index_add_`` in the same call
-   (``segment_sum_matmul``'s ratio reported), and the device time of each
+   (``segment_sum_matmul``'s ratio reported), and the device time per
    launch of one sum call (the costes histograms, ``segment_sum_matmul``);
+   for per-bin min/max and the lookup at both main-path shapes, the time per
+   call (one call, and within a run of 50 calls) beside its device time per
+   launch and the wrapper's host time, the
+   ratio to the library call (min/max no slower than ``scatter_reduce``),
+   and the widths of every call in one default-bank step;
    each fused
    step's fields/s, stage breakdown and peak memory, the default bank's
    device idle share; the ``kernels`` JSON line (six kernels, launches counted
@@ -70,6 +82,7 @@ result. Weights are the bundled checkpoint; inputs come from fixed seeds.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -115,20 +128,29 @@ def sync():
     torch.cuda.synchronize()
 
 
+def cuda_ms_turns(fns, reps=REPS, warmup=2) -> list:
+    """Median wall time on the card of each of ``fns``, in ms (CUDA events),
+    the functions timed in turns, so that the host's drift during the
+    measurement falls on all of them alike."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for t, fn in zip(times, fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            sync()
+            t.append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
 def cuda_ms(fn, reps=REPS, warmup=2):
     """Median wall time of ``fn()`` on the card, in ms (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        sync()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return cuda_ms_turns([fn], reps, warmup)[0]
 
 
 def host_ms(fn, reps=5):
@@ -252,6 +274,19 @@ class Recorder:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+class Tally(Recorder):
+    """A Recorder that also counts its calls by ``describe(*args)``."""
+
+    def __init__(self, module, name, describe):
+        super().__init__(module, name)
+        self.describe = describe
+        self.counts = collections.Counter()
+
+    def __call__(self, *args, **kwargs):
+        self.counts[self.describe(*args)] += 1
+        return super().__call__(*args, **kwargs)
 
 
 def recording(recorders):
@@ -429,6 +464,105 @@ def kernel_checks(rng, dev) -> None:
     log(f"[kernels] binned_sum_cols ({B}, {N}, {K}) -> {n_bins} bins in {n_pass} passes: max rel "
         f"err {rel:.3g}, max err / bound {ratio:.3g}; bit-equal to the CPU's grouping in the "
         f"kernel's order; a column's bits do not depend on its group; one shared non-finite flag")
+    minmax_lookup_checks(rng, dev, base)
+
+
+def minmax_values(rng, B, N, K):
+    """(B, N, K) f32 with +-0.0 (4%), NaN, +inf and -inf here and there."""
+    v = rng.normal(0, 50, (B, N, K)).astype(np.float32)
+    r = rng.random((B, N, K))
+    v[r < 0.02] = 0.0
+    v[(r >= 0.02) & (r < 0.04)] = -0.0
+    v[r > 1 - 1e-4] = np.nan
+    v[(r > 1 - 2e-4) & (r <= 1 - 1e-4)] = np.inf
+    v[(r > 1 - 3e-4) & (r <= 1 - 2e-4)] = -np.inf
+    return v
+
+
+def minmax_lookup_checks(rng, dev, base) -> None:
+    """Phase 2: per-bin min/max and the lookup on adversarial inputs, each
+    against its plain version (min/max equal, NaN positions equal; the
+    lookup, a copy, the same bits), and the signed-zero rule of min/max."""
+    from aliby_tpu_torch.ops import segsum
+
+    labels = tiled_labels(base, 16, 256, 256).reshape(16, -1)  # objects on bin 0
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+    bbox = np.broadcast_to(np.stack([yy, xx], -1).reshape(1, -1, 2), (16, 65536, 2))
+    perm = np.stack([rng.permutation(4096) for _ in range(2)]).astype(np.int32)
+    # (what, values, bins, n_bins)
+    minmax_cases = [
+        ("label images, bbox coordinates", bbox.copy(), labels, 65),
+        ("label images, K 1", minmax_values(rng, 16, 65536, 1), labels, 65),
+        ("label images, K 2", minmax_values(rng, 16, 65536, 2), labels, 65),
+        ("every pixel in bin 0", minmax_values(rng, 16, 65536, 2),
+         np.zeros((16, 65536), np.int32), 65),
+        ("one pixel per bin of 4,096", minmax_values(rng, 2, 4096, 1), perm, 4096),
+        ("ragged (1, 62401, 2)", minmax_values(rng, 1, 62401, 2),
+         rng.integers(-2, 67, (1, 62401)).astype(np.int32), 65),
+        ("ragged (3, 62401, 3)", minmax_values(rng, 3, 62401, 3),
+         labels[:3, :62401].copy(), 65),
+        ("n_bins x K = 2,048 x 2", minmax_values(rng, 2, 65536, 2),
+         rng.integers(-1, 2049, (2, 65536)).astype(np.int32), 2048),
+        ("n_bins x K = 1,024 x 4", minmax_values(rng, 2, 65536, 4),
+         rng.integers(-1, 1025, (2, 65536)).astype(np.int32), 1024),
+    ]
+    for what, vals, bins, n_bins in minmax_cases:
+        v, b = torch.from_numpy(vals).to(dev), torch.from_numpy(bins).to(dev)
+        got = segsum.binned_minmax_batched(v, b, n_bins)
+        want = segsum.binned_minmax_batched_plain(v, b, n_bins)
+        sync()
+        if not agree(got, want):
+            raise AssertionError(f"binned_minmax_batched != plain on {what}")
+    # signed zeros: every value +-0.0 on label images; a bin holding both
+    # gives min -0.0 and max +0.0, a bin of one sign that zero
+    neg = rng.random((16, 65536)) < 0.5
+    zeros = np.where(neg, np.float32(-0.0), np.float32(0.0))[..., None]
+    mn, mx = segsum.binned_minmax_batched(torch.from_numpy(zeros).to(dev),
+                                          torch.from_numpy(labels).to(dev), 65)
+    want_neg = np.zeros((16, 65), bool)
+    want_pos = np.zeros((16, 65), bool)
+    for i in range(16):
+        want_neg[i, np.unique(labels[i][neg[i]])] = True
+        want_pos[i, np.unique(labels[i][~neg[i]])] = True
+    present = want_neg | want_pos
+    mn, mx = mn.cpu()[..., 0].numpy(), mx.cpu()[..., 0].numpy()
+    if not ((mn[present] == 0).all() and (mx[present] == 0).all()
+            and np.array_equal(np.signbit(mn[present]), want_neg[present])
+            and np.array_equal(np.signbit(mx[present]), ~want_pos[present])
+            and (want_neg & want_pos).any()):
+        raise AssertionError("binned_minmax_batched: -0.0 must count as below +0.0")
+
+    # the lookup: (what, table, bins)
+    def table(B, L, K):
+        t = rng.normal(0, 10, (B, L, K)).astype(np.float32)
+        t[0, 1, 0], t[-1, 2, K - 1], t[0, 3, K - 1], t[0, 4, 0] = np.inf, -np.inf, np.nan, -0.0
+        return t
+
+    lookup_cases = [("label images, L 64, K 3", table(16, 64, 3), labels),
+                    ("label images, L 64, K 5", table(16, 64, 5), labels),
+                    ("every pixel in bin 4, K 3", table(16, 64, 3),
+                     np.full((16, 65536), 4, np.int32)),
+                    ("one pixel per bin of 4,096, K 3", table(2, 4096, 3), perm),
+                    ("L x K = 12,288 x 1", table(2, 12288, 1),
+                     rng.integers(-3, 12291, (2, 65536)).astype(np.int32)),
+                    ("L x K = 1,536 x 8", table(2, 1536, 8),
+                     rng.integers(-3, 1539, (2, 65536)).astype(np.int32))]
+    for K in (*range(1, 9), 13):
+        for B in (1, 3):
+            lookup_cases.append((f"ragged ({B}, 62401), L 64, K {K}", table(B, 64, K),
+                                 rng.integers(-3, 67, (B, 62401)).astype(np.int32)))
+    for what, tab, bins in lookup_cases:
+        t, b = torch.from_numpy(tab).to(dev), torch.from_numpy(bins).to(dev)
+        got = segsum.table_lookup_batched(t, b)
+        want = segsum.table_lookup_batched_plain(t, b)
+        sync()
+        if not same_bits(got, want):
+            raise AssertionError(f"table_lookup_batched != plain (bits) on {what}")
+    log(f"[kernels] binned_minmax_batched on {len(minmax_cases)} adversarial inputs (label "
+        f"images, one bin, one pixel per bin, ragged N, n_bins x K at 4,096) equal to plain, NaN "
+        f"positions equal; -0.0 below +0.0 on label images; table_lookup_batched on "
+        f"{len(lookup_cases)} (label images, one bin, one pixel per bin, L x K at 12,288, ragged "
+        f"N at K 1-8 and 13) the same bits as plain")
 
 
 def segment_sum_inputs(rng, N, K, max_labels, dev):
@@ -499,12 +633,12 @@ def kernel_row(name, kernel, plain, library, bytes_, ops, shape, launches,
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
     source = "aliby_tpu_torch/kernels/csrc/" + (
         "stencil.cu" if name in ("successor_prop", "diffuse_heat") else "segsum.cu")
+    ms, plain_ms, *library_ms = cuda_ms_turns([kernel, plain] + [library] * (library is not None))
     r = {
         "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
-        "launches": launches, "max_abs_err": err, **extra, "ms": cuda_ms(kernel),
-        "plain_ms": cuda_ms(plain),
+        "launches": launches, "max_abs_err": err, **extra, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": cuda_ms(library) if library is not None else None, "shape": list(shape),
+        "library_ms": library_ms[0] if library_ms else None, "shape": list(shape),
     }
     rel = (f", max rel err {extra['max_rel_err']:.3g}, max err / bound "
            f"{extra['max_err_over_bound']:.3g}" if extra else "")
@@ -512,6 +646,86 @@ def kernel_row(name, kernel, plain, library, bytes_, ops, shape, launches,
         f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
         f"max abs err {err}{rel}, launches on the path {launches}")
     return r
+
+
+def device_by_launch(fn, calls: int = 20, windows: int = 3) -> dict:
+    """Device time of one launch of each kernel that one call of ``fn``
+    launches, by name, and the share of the ``calls`` calls' launches the
+    profiler recorded (torch.profiler). A short window records only some of
+    its launches (between 45% and all of them on the H100 runs of this
+    script), so the time is the mean over the launches recorded, from the
+    fullest of ``windows`` windows, and the recorded count is no count of
+    launches per call: those follow from the wrapper's code, and the cuda
+    tests and the step's kernel count check them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    best = {}  # name -> (launches recorded, ms per launch)
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            sync()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                if e.count > best.get(name, (0, 0.0))[0]:
+                    best[name] = (e.count, e.self_device_time_total / e.count / 1e3)
+    return {name: (t, n / calls) for name, (n, t) in best.items()}
+
+
+def host_ms_per_call(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn``: perf_counter over ``calls`` calls
+    issued back to back, read before the synchronize that ends them."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    sync()
+    return host
+
+
+def run_ms_per_call(fn, calls: int = 50, reps: int = 5) -> float:
+    """Time per call of ``fn`` within a run of ``calls`` calls issued back to
+    back (CUDA events around the run, the median of ``reps`` runs): the rate
+    at which a step, whose host issues calls while the card works, gets
+    them done."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def report_costs(row: dict, fn, library) -> None:
+    """Adds what one call of a wrapper costs to its kernel's row (the device
+    time of each launch, the host time of the call, the library call's host
+    time) and logs it beside the time per call and the ratio to the library
+    call."""
+    parts = device_by_launch(fn)
+    row.update(device_ms_per_launch={k: t for k, (t, _) in parts.items()},
+               host_ms=host_ms_per_call(fn), library_host_ms=host_ms_per_call(library),
+               ms_in_a_run=run_ms_per_call(fn), library_ms_in_a_run=run_ms_per_call(library))
+    device = ("not measured (the profiler saw no CUDA kernels)" if not parts else ", ".join(
+        f"{k} {t:.4f} ms (recorded {n:.2f} a call)" for k, (t, n) in parts.items()))
+    log(f"[report] {row['name']} {tuple(row['shape'])} per call: {row['ms']:.4f} ms (CUDA events), "
+        f"device per launch {device}, host {row['host_ms']:.4f} ms (the wrapper); library "
+        f"{row['library_ms']:.4f} ms (host {row['library_host_ms']:.4f} ms), kernel / library "
+        f"{row['ms'] / row['library_ms']:.3f}; in a run of 50 calls {row['ms_in_a_run']:.4f} ms "
+        f"a call, library {row['library_ms_in_a_run']:.4f} ms, kernel / library "
+        f"{row['ms_in_a_run'] / row['library_ms_in_a_run']:.3f}")
 
 
 def binned_sum_row(vals, bins, n_bins, launches) -> dict:
@@ -579,6 +793,13 @@ def measure_kernels(recorded: dict, launches: dict) -> dict:
                          mx0.scatter_reduce(0, idx, flat_vals, "amax")),
                 bytes_=Bv * N * (4 * K + 4) + 2 * Bv * n_bins * K * 4, ops=2 * Bv * N * K,
                 shape=(Bv, N, K, n_bins))
+        row = out["binned_minmax_batched"]
+        report_costs(row, lambda: segsum.binned_minmax_batched(vals, bins, n_bins),
+                     lambda: (mn0.scatter_reduce(0, idx, flat_vals, "amin"),
+                              mx0.scatter_reduce(0, idx, flat_vals, "amax")))
+        if row["ms"] > row["library_ms"]:
+            raise AssertionError(f"binned_minmax_batched slower than scatter_reduce at "
+                                 f"{tuple(row['shape'])}")
     if "table_lookup_batched" in recorded:
         table, bins = recorded["table_lookup_batched"]
         Bt, L, K = table.shape
@@ -592,6 +813,8 @@ def measure_kernels(recorded: dict, launches: dict) -> dict:
                 lambda: flat_tab[fidx],
                 bytes_=Bt * N * 4 + Bt * N * K * 4 + Bt * L * K * 4, ops=0,
                 shape=(Bt, N, L, K))
+        report_costs(out["table_lookup_batched"], lambda: segsum.table_lookup_batched(table, bins),
+                     lambda: flat_tab[fidx])
     return out
 
 
@@ -727,12 +950,10 @@ def device_share(fn, what="one batch") -> None:
 
 
 def sum_breakdown(costes, wide_costes, segment_shape, dev) -> None:
-    """Device time of each launch of one sum-kernel call (torch.profiler,
-    mean of 5 calls): the costes histogram at 256^2 and at 1080^2, and
-    segment_sum_matmul at phase 2's shape."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time of each launch of one sum-kernel call (``device_by_launch``;
+    a call launches pass 1, alloc, scatter and combine once and two memsets):
+    the costes histogram at 256^2 and at 1080^2, and segment_sum_matmul at
+    phase 2's shape."""
     from aliby_tpu_torch.ops import segsum
 
     N, K, L = segment_shape
@@ -741,21 +962,13 @@ def sum_breakdown(costes, wide_costes, segment_shape, dev) -> None:
              "costes histogram 1080^2": lambda: segsum.binned_sum_cols_batched(*wide_costes),
              "segment_sum_matmul": lambda: segsum.segment_sum_matmul(v, lab, L)}
     for what, fn in calls.items():
-        fn()
-        sync()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            sync()
-        parts = [(e.key.replace("(anonymous namespace)::", "").split("(")[0],
-                  e.self_device_time_total / 5e3) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        parts = device_by_launch(fn)
         if not parts:
             log(f"[report] {what}: device time by launch not measured (the profiler saw no "
                 f"CUDA kernels)")
             continue
-        log(f"[report] {what}, device time per call by launch: " + ", ".join(
-            f"{k} {t:.4f} ms" for k, t in parts) + f"; total {sum(t for _, t in parts):.4f} ms")
+        log(f"[report] {what}, device time per launch: " + ", ".join(
+            f"{k} {t:.4f} ms (recorded {n:.2f} a call)" for k, (t, n) in parts.items()))
 
 
 def peak_gb(fn) -> float:
@@ -886,15 +1099,22 @@ def fused_checks(what: str, pixels, slice1_labels, reps: int, profile: bool):
         "channel lookup": Recorder(reductions, "table_lookup_batched",
                                    lambda t, *a: t.shape[-1] == 5),
     }
+    # the widths of every min/max and lookup call
+    tallies = [Tally(reductions, "binned_minmax_batched",
+                     lambda v, b, n: f"K {v.shape[-1]}, {n} bins"),
+               Tally(reductions, "table_lookup_batched",
+                     lambda t, b: f"K {t.shape[-1]}, L {t.shape[1]}, {b[0].numel()} px")]
     for w in wrappers.values():
         w.launches = 0
-    with recording(recorders.values()):
+    with recording([*recorders.values(), *tallies]):
         t0 = time.perf_counter()
         run1 = step.fused(pixels)
         t_run1 = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     log(f"[fused] {what} step, 8 fields x 2 objects: first call {t_first * 1e3:.1f} ms, "
         f"counted run {t_run1 * 1e3:.1f} ms; launches {launches}")
+    for t in tallies:
+        log(f"[fused] {what} step, {t.name} calls by width: {dict(t.counts)}")
     for name, n in launches.items():
         if name in off_path:
             if n != 0:

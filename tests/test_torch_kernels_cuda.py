@@ -286,6 +286,191 @@ def test_table_lookup_kernel(dev, B, N, L, K):
     assert _equal_with_nan(got, want)
 
 
+# The redesigned min/max and lookup kernels on adversarial inputs: label
+# images (objects on a background: the warp-aggregated case), every pixel in
+# one bin, one pixel per bin, a ragged N (odd, N x K not a multiple of 4, one
+# image and three), the limits n_bins x K = 4,096 and L x K = 12,288, +-inf,
+# NaN and signed zeros. Min/max: equal to plain with NaN positions equal
+# (torch.equal: -0.0 == +0.0; the signed-zero rule is pinned apart); the
+# lookup, a copy: the same bits as plain.
+
+def _label_maps(rng, B, N):
+    """(B, N) int32: the test fields' label maps tiled to 256 x 256 (objects
+    1..24 on the background 0), cut to N pixels."""
+    from aliby_tpu_torch.test_data import render_cells
+
+    base = [render_cells(256, 24, rng)[2].reshape(-1) for _ in range(4)]
+    return np.stack([np.resize(base[i % 4], N) for i in range(B)]).astype(np.int32)
+
+
+def _minmax_values(rng, B, N, K):
+    v = rng.normal(0, 50, (B, N, K)).astype(np.float32)
+    r = rng.random((B, N, K))
+    v[r < 0.02] = 0.0
+    v[(r >= 0.02) & (r < 0.04)] = -0.0
+    v[r > 1 - 1e-4] = np.nan
+    v[(r > 1 - 2e-4) & (r <= 1 - 1e-4)] = np.inf
+    v[(r > 1 - 3e-4) & (r <= 1 - 2e-4)] = -np.inf
+    return v
+
+
+def _check_minmax(vals, bins, n_bins):
+    v, b = torch.from_numpy(vals).to("cuda"), torch.from_numpy(bins).to("cuda")
+    mn, mx = segsum.binned_minmax_batched(v, b, n_bins)
+    pmn, pmx = segsum.binned_minmax_batched_plain(v, b, n_bins)
+    assert mn.shape == mx.shape == (bins.shape[0], n_bins, vals.shape[-1])
+    assert _equal_with_nan(mn, pmn) and _equal_with_nan(mx, pmx)
+
+
+@pytest.mark.parametrize("layout", ["label images", "bbox coordinates", "one bin",
+                                    "one pixel per bin"])
+@pytest.mark.parametrize("K", [1, 2])
+def test_binned_minmax_kernel_adversarial(dev, layout, K):
+    rng = np.random.default_rng(K)
+    B, N, n_bins = 16, 65536, 65
+    vals = _minmax_values(rng, B, N, K)
+    if layout == "one bin":
+        bins = np.zeros((B, N), np.int32)
+    elif layout == "one pixel per bin":
+        B, N, n_bins = 2, 4096 // K, 4096 // K
+        vals = vals[:B, :N]
+        bins = np.stack([rng.permutation(N) for _ in range(B)]).astype(np.int32)
+    else:
+        bins = _label_maps(rng, B, N)
+        bins[:, 5], bins[:, 9] = -1, n_bins  # dropped
+    if layout == "bbox coordinates":  # rising with the pixel index
+        yy, xx = np.mgrid[0:256, 0:256].astype(np.float32)
+        vals = np.broadcast_to(np.stack([yy, xx], -1).reshape(1, N, 2)[..., :K],
+                               (B, N, K)).copy()
+    _check_minmax(vals, bins, n_bins)
+
+
+@pytest.mark.parametrize("B,N,K,n_bins", [(1, 62401, 2, 65), (3, 62401, 3, 65),
+                                          (3, 62401, 1, 257), (1, 62401, 1, 4096),
+                                          (2, 65536, 2, 2048), (2, 65536, 4, 1024),
+                                          (1, 7, 2, 3)])
+def test_binned_minmax_kernel_ragged_and_limits(dev, B, N, K, n_bins):
+    """A ragged N (odd: misaligned images at B 3), n_bins x K up to 4,096,
+    and fewer pixels than a thread takes."""
+    rng = np.random.default_rng(N + K)
+    bins = _label_maps(rng, B, N) if n_bins == 65 else rng.integers(
+        -2, n_bins + 2, (B, N)).astype(np.int32)
+    _check_minmax(_minmax_values(rng, B, N, K), bins, n_bins)
+
+
+def test_binned_minmax_kernel_signed_zeros(dev):
+    """-0.0 counts as below +0.0: a bin holding both (in either order, in
+    one warp or across blocks) gives min -0.0 and max +0.0, a bin of one
+    sign that zero."""
+    rng = np.random.default_rng(3)
+    bins = _label_maps(rng, 16, 65536)
+    neg = rng.random(bins.shape) < 0.5
+    vals = np.where(neg, np.float32(-0.0), np.float32(0.0))[..., None]
+    mn, mx = segsum.binned_minmax_batched(torch.from_numpy(vals).to(dev),
+                                          torch.from_numpy(bins).to(dev), 65)
+    mn, mx = mn.cpu()[..., 0].numpy(), mx.cpu()[..., 0].numpy()
+    has_neg = np.zeros((16, 65), bool)
+    has_pos = np.zeros((16, 65), bool)
+    for i in range(16):
+        has_neg[i, np.unique(bins[i][neg[i]])] = True
+        has_pos[i, np.unique(bins[i][~neg[i]])] = True
+    present = has_neg | has_pos
+    assert (has_neg & has_pos).any()
+    assert (mn[present] == 0).all() and (mx[present] == 0).all()
+    np.testing.assert_array_equal(np.signbit(mn[present]), has_neg[present])
+    np.testing.assert_array_equal(np.signbit(mx[present]), ~has_pos[present])
+    pair = torch.tensor([[-0.0, 0.0, 0.0, -0.0]], device=dev)[..., None]
+    mn, mx = segsum.binned_minmax_batched(pair, torch.tensor([[0, 0, 1, 1]], device=dev), 2)
+    assert torch.signbit(mn).all() and not torch.signbit(mx).any()
+
+
+def _device_kernels(fn, calls=5):
+    """{name: launches recorded} of the device work (kernels, memsets) of
+    ``calls`` calls of ``fn`` (torch.profiler; a short window may record
+    only some launches, never more)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    if not events:
+        pytest.skip("the profiler saw no CUDA kernels")
+    return events
+
+
+def test_minmax_and_lookup_one_launch_per_call(dev):
+    """One kernel a call and nothing else on the device: no init or decode
+    kernel, no memset."""
+    rng = np.random.default_rng(4)
+    bins = torch.from_numpy(_label_maps(rng, 16, 65536)).to(dev)
+    vals = torch.from_numpy(_minmax_values(rng, 16, 65536, 2)).to(dev)
+    table = torch.from_numpy(rng.normal(size=(16, 65, 3)).astype(np.float32)).to(dev)
+    for fn, counter, name in ((lambda: segsum.binned_minmax_batched(vals, bins, 65),
+                               segsum.binned_minmax_batched, "binned_minmax_kernel"),
+                              (lambda: segsum.table_lookup_batched(table, bins),
+                               segsum.table_lookup_batched, "table_lookup_kernel")):
+        before = counter.launches
+        fn()
+        assert counter.launches == before + 1
+        events = _device_kernels(fn)
+        assert len(events) == 1 and name in next(iter(events)), events
+        assert 1 <= next(iter(events.values())) <= 5
+
+
+def _lookup_table(rng, B, L, K):
+    t = rng.normal(0, 10, (B, L, K)).astype(np.float32)
+    t[0, 1, 0], t[-1, 2, K - 1], t[0, 3, K - 1], t[0, 4, 0] = np.inf, -np.inf, np.nan, -0.0
+    return t
+
+
+def _check_lookup(table, bins):
+    t, b = torch.from_numpy(table).to("cuda"), torch.from_numpy(bins).to("cuda")
+    got = segsum.table_lookup_batched(t, b)
+    assert got.shape == bins.shape + (table.shape[-1],)
+    assert _same_bits(got, segsum.table_lookup_batched_plain(t, b))
+
+
+@pytest.mark.parametrize("K", [*range(1, 9), 13])
+@pytest.mark.parametrize("B", [1, 3])
+def test_table_lookup_kernel_every_width_ragged(dev, B, K):
+    """Every K from 1 to 8 and 13 on a ragged N (odd: N x K not a multiple
+    of 4, so images 1 and 2 start off a 16-byte boundary)."""
+    rng = np.random.default_rng(10 * B + K)
+    _check_lookup(_lookup_table(rng, B, 64, K),
+                  rng.integers(-3, 67, (B, 62401)).astype(np.int32))
+
+
+@pytest.mark.parametrize("layout", ["label images", "one bin", "one pixel per bin"])
+@pytest.mark.parametrize("K", [3, 5])
+def test_table_lookup_kernel_label_images(dev, layout, K):
+    rng = np.random.default_rng(K)
+    if layout == "label images":
+        table, bins = _lookup_table(rng, 16, 64, K), _label_maps(rng, 16, 65536)
+    elif layout == "one bin":
+        table, bins = _lookup_table(rng, 16, 64, K), np.full((16, 65536), 4, np.int32)
+    else:
+        table = _lookup_table(rng, 2, 4096 // K, K)
+        bins = np.stack([rng.permutation(4096 // K) for _ in range(2)]).astype(np.int32)
+    _check_lookup(table, bins)
+
+
+@pytest.mark.parametrize("L,K", [(12288, 1), (4096, 3), (1536, 8)])
+def test_table_lookup_kernel_limits(dev, L, K):
+    """L x K = 12,288: the table and the chunk's bins past 48 KB of shared
+    memory; a wider table raises."""
+    rng = np.random.default_rng(L)
+    _check_lookup(_lookup_table(rng, 2, L, K),
+                  rng.integers(-3, L + 3, (2, 65536)).astype(np.int32))
+    with pytest.raises(ValueError):
+        segsum.table_lookup_batched(torch.zeros(1, L + 1, K, device=dev),
+                                    torch.zeros(1, 5, dtype=torch.int32, device=dev))
+
+
 def test_sqrt_on_the_card_is_correctly_rounded(dev):
     from aliby_tpu_torch.ops.imageops import _sqrt
 

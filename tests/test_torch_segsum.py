@@ -220,6 +220,115 @@ def test_table_lookup_infinities_follow_the_kernel_path():
     assert np.isnan(got[~finite]).all()
 
 
+# The input families the redesigned min/max and lookup kernels are held to
+# on the card (``tests/test_torch_kernels_cuda.py``): label images (objects
+# on a background, the warp-aggregated case), every pixel in one bin, one
+# pixel per bin, a ragged N (odd, N x K not a multiple of 4). Here the plain
+# versions against the Pallas kernels in interpreter mode.
+
+def _label_bins(B, H, W, n_bins, seed):
+    """(B, H*W) int32 bins from synthetic label maps (label k -> bin k, the
+    background bin 0), a few pixels dropped (-1, n_bins)."""
+    from aliby_tpu_torch.test_data import render_cells
+
+    rng = np.random.default_rng(seed)
+    maps = [render_cells(128, 12, rng)[2][:H, :W] % n_bins for _ in range(B)]
+    bins = np.stack(maps).reshape(B, H * W).astype(np.int32)
+    bins[:, 1], bins[:, 2] = -1, n_bins
+    return bins
+
+
+def _zeros_equal(got, want):
+    """Equal values and NaN positions, -0.0 == +0.0 (the reference's rule
+    for signed zeros may differ; the port's own rule is pinned apart)."""
+    _equal_with_nan(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+def test_binned_minmax_label_images_match_pallas_kernel(K):
+    """Contiguous objects on a background, a ragged N (97 x 61), +-inf,
+    NaN and signed zeros among the values."""
+    B, H, W, n_bins = 2, 97, 61, 65
+    bins = _label_bins(B, H, W, n_bins, seed=20 + K)
+    assert len(np.unique(bins[0])) > 5
+    rng = np.random.default_rng(K)
+    vals = rng.normal(0, 2, (B, H * W, K)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.05] = 0.0
+    vals[rng.random(vals.shape) < 0.05] = -0.0
+    vals[0, 100, 0], vals[1, 200, K - 1], vals[0, 300, 0] = np.inf, -np.inf, np.nan
+    want = jax_binned_minmax(jnp.asarray(vals), jnp.asarray(bins), n_bins, interpret=True)
+    got = segsum.binned_minmax_batched(torch.from_numpy(vals), torch.from_numpy(bins), n_bins)
+    assert np.isnan(got[0].numpy()).sum() == 1
+    for g, w in zip(got, want):
+        _zeros_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("layout", ["one bin", "one pixel per bin"])
+def test_binned_minmax_one_bin_and_one_pixel_per_bin(layout):
+    rng = np.random.default_rng(5)
+    B, N, K, n_bins = 2, 257, 2, 257
+    vals = rng.normal(0, 2, (B, N, K)).astype(np.float32)
+    if layout == "one bin":
+        bins = np.zeros((B, N), np.int32)
+    else:
+        bins = np.stack([rng.permutation(n_bins)[:N] for _ in range(B)]).astype(np.int32)
+    want = jax_binned_minmax(jnp.asarray(vals), jnp.asarray(bins), n_bins, interpret=True)
+    got = segsum.binned_minmax_batched(torch.from_numpy(vals), torch.from_numpy(bins), n_bins)
+    for g, w in zip(got, want):
+        _zeros_equal(g.numpy(), w)
+    if layout == "one pixel per bin":  # each bin holds its pixel's value
+        np.testing.assert_array_equal(got[0].numpy(), got[1].numpy())
+
+
+def test_binned_minmax_signed_zeros():
+    """Against the Pallas kernel with -0.0 == +0.0; the port's rule where it
+    is the same on every device: a bin of -0.0 only gives -0.0, a bin of
+    +0.0 only gives +0.0. (A bin holding both gives min -0.0, max +0.0 on
+    the card, pinned in the cuda tests; the plain version's scatter keeps
+    whichever zero comes first.)"""
+    vals = np.array([-0.0, -0.0, 0.0, 0.0, -0.0, 0.0, 1.0], np.float32).reshape(1, 7, 1)
+    bins = np.array([[0, 0, 1, 1, 2, 2, 2]], np.int32)
+    want = jax_binned_minmax(jnp.asarray(vals), jnp.asarray(bins), 3, interpret=True)
+    mn, mx = (t.numpy()[0, :, 0] for t in segsum.binned_minmax_batched(
+        torch.from_numpy(vals), torch.from_numpy(bins), 3))
+    for g, w in zip((mn, mx), want):
+        _zeros_equal(g, np.asarray(w)[0, :, 0])
+    assert np.signbit(mn[0]) and np.signbit(mx[0])
+    assert not np.signbit(mn[1]) and not np.signbit(mx[1])
+    assert mn[2] == 0.0 and mx[2] == 1.0
+
+
+@pytest.mark.parametrize("K", range(1, 9))
+def test_table_lookup_every_width_matches_pallas_kernel(K):
+    """Every K from 1 to 8 on a ragged N (1,001 pixels: N x K is not a
+    multiple of 4 for odd K), +-inf and NaN entries, bins out of range."""
+    table, bins = _lookup_inputs(3, 1001, 64, K, seed=30 + K)
+    want = np.asarray(jax_table_lookup(jnp.asarray(table), jnp.asarray(bins), interpret=True))
+    got = segsum.table_lookup_batched(torch.from_numpy(table), torch.from_numpy(bins)).numpy()
+    assert got.shape == (3, 1001, K)
+    _zeros_equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["label image", "one bin"])
+def test_table_lookup_label_images_match_pallas_kernel(layout):
+    B, H, W, L, K = 2, 97, 61, 64, 3
+    table, _ = _lookup_inputs(B, 1, L, K, seed=40)
+    table[0, 0] = -0.0
+    if layout == "label image":
+        bins = _label_bins(B, H, W, L, seed=41)
+    else:
+        bins = np.full((B, H * W), 5, np.int32)
+    want = np.asarray(jax_table_lookup(jnp.asarray(table), jnp.asarray(bins), interpret=True))
+    got = segsum.table_lookup_batched(torch.from_numpy(table), torch.from_numpy(bins)).numpy()
+    _zeros_equal(got, want)
+    # a copy: the bits of the entry it reads, -0.0 included
+    ok = (bins >= 0) & (bins < L)
+    rows = table[np.arange(B)[:, None], np.clip(bins, 0, L - 1)]
+    finite = np.isfinite(rows)
+    assert np.array_equal(got[ok & finite.all(-1)].view(np.int32),
+                          rows[ok & finite.all(-1)].view(np.int32))
+
+
 def _segment_inputs(N, K, max_labels, seed):
     rng = np.random.default_rng(seed)
     vals = rng.normal(0, 2, (N, K)).astype(np.float32)
