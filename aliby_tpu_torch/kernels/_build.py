@@ -34,14 +34,13 @@ _L = ctypes.c_int64
 # argtypes of every C entry, by source
 PROTOTYPES = {
     "stencil": {
-        "successor_prop_rounds": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "diffuse_mask": (_P, _P, _I, _I, _I, _P),
-        "diffuse_step": (_P, _P, _P, _P, _I, _I, _I, _P),
+        "successor_prop": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "diffuse_heat": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "segsum": {
         "binned_sum_cols": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _P),
         "segment_sum": (_P, _P, _P, _P, _P, _P, _L, _I, _L, _P),
-        "binned_minmax": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P),
+        "binned_minmax": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P),
         "table_lookup": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
     },
 }

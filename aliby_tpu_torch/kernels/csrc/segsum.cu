@@ -97,15 +97,16 @@
 // ending run of the warp is in one bin) was slower on the feature bank's
 // label images than these per-lane updates, and far slower on uniform
 // bins. Each block then writes its table to scratch; the last block of each
-// image to finish (an integer ticket per image, g_minmax_tickets, which
-// that block sets back to 0 for the next call) folds the G tables with
+// image to finish (an integer ticket per image, which that block sets back
+// to 0 for the next call) folds the G tables with
 // 16-byte loads and writes the decoded minima and maxima. No init or
 // decode launch and no memset. Scratch (allocated by the wrapper,
 // ops/segsum.py minmax_scratch): B x G tables of 2 x n_bins x K keys, each
 // rounded up to 16 bytes, with G chosen there to make one wave (4 blocks
 // per SM) and to keep the last block's fold at most 65,536 keys a table.
-// Calls on one device must be ordered (one stream), since they share the
-// tickets. Bound on the H100: device-memory bytes (one read of values and
+// The tickets are the caller's: the wrapper keeps one zeroed array for each
+// (device, stream), so calls on one stream run in order and calls on two
+// streams count apart. Bound on the H100: device-memory bytes (one read of values and
 // bins). At the feature bank's 16 x 256^2 pixels the loads alone run near
 // that bound; the run updates and the chain that ends a call (tables,
 // ticket, the last block's fold) take the rest. Shared memory: 2 x n_bins
@@ -483,9 +484,6 @@ constexpr int kMinmaxThreads = 256;
 constexpr int kPx = 8;  // consecutive pixels a thread takes at a time
 constexpr int kTile = kPx * kMinmaxThreads;  // pixels a block takes at a time
 
-// one ticket per image: blocks of the image that have written their table
-__device__ unsigned int g_minmax_tickets[65535];
-
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -536,7 +534,8 @@ template <int KT>
 __global__ void __launch_bounds__(kMinmaxThreads, 4)
 binned_minmax_kernel(const float* __restrict__ vals, const int32_t* __restrict__ bins,
                      float* __restrict__ mn_out, float* __restrict__ mx_out,
-                     int32_t* __restrict__ part, int64_t N, int K_rt, int n_bins, int G) {
+                     int32_t* __restrict__ part, unsigned int* __restrict__ tickets, int64_t N,
+                     int K_rt, int n_bins, int G) {
   extern __shared__ int32_t s_tab[];
   __shared__ bool s_last;
   const int K = KT ? KT : K_rt;
@@ -606,10 +605,10 @@ binned_minmax_kernel(const float* __restrict__ vals, const int32_t* __restrict__
   for (int i = tid; i < 2 * slots; i += blockDim.x) pb[(int64_t)blockIdx.x * C + i] = s_tab[i];
   __threadfence();
   __syncthreads();
-  if (tid == 0) s_last = atomicAdd(&g_minmax_tickets[b], 1u) == (unsigned)G - 1;
+  if (tid == 0) s_last = atomicAdd(&tickets[b], 1u) == (unsigned)G - 1;
   __syncthreads();
   if (!s_last) return;
-  if (tid == 0) g_minmax_tickets[b] = 0;  // every block of the image has counted itself
+  if (tid == 0) tickets[b] = 0;  // every block of the image has counted itself
   const int4* p4 = reinterpret_cast<const int4*>(pb);
   const int total = G * C / 4;  // G * C < 2^31: G <= 65,535, C <= 8,196
   for (int q0 = tid; q0 < total; q0 += 8 * blockDim.x) {
@@ -773,11 +772,12 @@ extern "C" int segment_sum(const float* vals, const int32_t* labels, float* run_
 
 // mn and mx receive B * n_bins * K floats each; part holds B * G *
 // round_up(2 * n_bins * K, 4) int32 of scratch, 16-byte aligned (G blocks
-// per image, chosen by the wrapper).
+// per image, chosen by the wrapper); tickets B zeroed counters that no call
+// on another stream uses at the same time (the kernel leaves them zero).
 // One launch; 2 * n_bins * K * 4 bytes of shared memory (at most 32 KB).
 extern "C" int binned_minmax(const float* vals, const int32_t* bins, float* mn, float* mx,
-                             int32_t* part, int B, int64_t N, int K, int n_bins, int64_t G,
-                             void* stream) {
+                             int32_t* part, unsigned int* tickets, int B, int64_t N, int K,
+                             int n_bins, int64_t G, void* stream) {
   if (B < 1 || N < 1 || K < 1 || n_bins < 1 || G < 1 || G > 65535 || B > 65535 ||
       (int64_t)n_bins * K > 4096)
     return (int)cudaErrorInvalidValue;
@@ -785,14 +785,14 @@ extern "C" int binned_minmax(const float* vals, const int32_t* bins, float* mn, 
   const dim3 grid((unsigned)G, B);
   cudaStream_t s = (cudaStream_t)stream;
   if (K == 1)
-    binned_minmax_kernel<1><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part, N, K,
-                                                               n_bins, (int)G);
+    binned_minmax_kernel<1><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part,
+                                                               tickets, N, K, n_bins, (int)G);
   else if (K == 2)
-    binned_minmax_kernel<2><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part, N, K,
-                                                               n_bins, (int)G);
+    binned_minmax_kernel<2><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part,
+                                                               tickets, N, K, n_bins, (int)G);
   else
-    binned_minmax_kernel<0><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part, N, K,
-                                                               n_bins, (int)G);
+    binned_minmax_kernel<0><<<grid, kMinmaxThreads, smem, s>>>(vals, bins, mn, mx, part,
+                                                               tickets, N, K, n_bins, (int)G);
   return (int)cudaGetLastError();
 }
 

@@ -166,6 +166,8 @@ def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
     if _device_of(values) == "cpu":
         return binned_sum_cols_batched_plain(values, bins, n_bins)
     vals, flat, B, N, K = _prep(values, bins)
+    if N == 0:  # plain's zero tables, no launch
+        return torch.zeros(B, n_bins, K, dtype=torch.float32, device=vals.device)
     out = _launch_sums("binned_sum_cols", "binned_sum_cols_batched", vals.contiguous(),
                        _int32_bins(flat, n_bins), B, N, K, n_bins)
     binned_sum_cols_batched.launches += 1
@@ -268,6 +270,23 @@ def binned_minmax_batched_plain(values: torch.Tensor, bins: torch.Tensor, n_bins
     return mn, mx
 
 
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def minmax_tickets(B: int, device: torch.device, stream: int) -> torch.Tensor:
+    """The min/max kernel's per-image tickets for calls on ``stream``: one
+    zeroed int32 array for each (device, stream), made at its first use
+    (on that stream, so its zeroing runs before any kernel that reads it)
+    and grown with B. The kernel's last block of each image sets its ticket
+    back to 0, so calls on one stream reuse the array in order and calls on
+    two streams never share a ticket."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < B:
+        t = _TICKETS[key] = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+    return t
+
+
 def minmax_scratch(B: int, N: int, slots: int) -> tuple[int, int]:
     """Blocks per image of the min/max kernel and the int32 words of its
     scratch. Blocks: enough for ``MINMAX_BLOCKS`` over the call, no more
@@ -301,14 +320,19 @@ def binned_minmax_batched(values: torch.Tensor, bins: torch.Tensor, n_bins: int)
     vals = (values if values.dtype == torch.float32 else values.float()).contiguous()
     flat = _int32_bins(bins, n_bins)
     N = flat.numel() // B
+    if N == 0:  # plain's (+inf, -inf) tables, no launch
+        inf = torch.full((B, n_bins, K), float("inf"), device=vals.device)
+        return inf, -inf
     G, n_part = minmax_scratch(B, N, slots)
     out = vals.new_empty((2, B, n_bins, K))
     part = flat.new_empty(n_part)
     lib = _build.load("segsum")
     mn = out.data_ptr()
+    stream = _build.stream_of(vals)
+    tickets = minmax_tickets(B, vals.device, stream)
     _build.check(
         lib.binned_minmax(vals.data_ptr(), flat.data_ptr(), mn, mn + 4 * B * slots,
-                          part.data_ptr(), B, N, K, n_bins, G, _build.stream_of(vals)),
+                          part.data_ptr(), tickets.data_ptr(), B, N, K, n_bins, G, stream),
         "binned_minmax_batched",
     )
     binned_minmax_batched.launches += 1

@@ -9,7 +9,11 @@ Phases, in order; any failure exits non-zero:
    ``aliby_tpu_torch/kernels/csrc`` (one process per source, in parallel).
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes and a ragged one: stencils, per-bin min/max and
-   table lookup bit-equal (NaN positions equal); per-bin sums (K = 3 and
+   table lookup bit-equal (NaN positions equal); the stencils at n_prop 0,
+   1, 5, 17, 96 and 97 (clipped fields and unclipped ones with dcodes
+   outside [0, 9)) and n_iter 1, 8, 9, 10 and 96 (around the diffusion
+   kernel's 9 rounds a launch; a label touching all four borders; sources
+   of +inf); per-bin sums (K = 3 and
    K = 17) with exact counts, sums within rtol 1e-5 and the summation bound
    of the plain version, and bit-equal (NaN positions equal) to the
    kernel's order taken on the CPU (``segsum.binned_sum_cols_batched_chunked``)
@@ -35,7 +39,9 @@ Phases, in order; any failure exits non-zero:
    of 16 on one shared engine; then one 1080x1080 field. Its three kernels
    must have launched; two runs must give identical labels; an f32 run on
    the card (TF32 off) must match an f32 run of the port on the CPU (equal
-   object counts, matched IoU >= 0.99).
+   object counts, matched IoU >= 0.99); the main path's bf16 labels on the
+   card must match f32 labels on the card, on the eight fields and the
+   1080x1080 one (object counts within max(1, 5%), matched IoU >= 0.90).
    slice 2 (the fused step): the example-01 pipeline
    (``build_pipeline_steps`` -> ``try_compile`` -> ``.fused``) on the same
    eight fields. All five kernels must have launched; labels must equal
@@ -65,6 +71,10 @@ Phases, in order; any failure exits non-zero:
    main-path sum no slower than ``index_add_`` in the same call
    (``segment_sum_matmul``'s ratio reported), and the device time per
    launch of one sum call (the costes histograms, ``segment_sum_matmul``);
+   for the stencils, launches a call (at most 8 and 13 at 96 rounds),
+   device time per launch, the wrapper's host time and the time a call in
+   a run, beside a bound counted from this run's data (``diffuse_heat``:
+   its least f32 instructions at the issue rate, an FMA one);
    for per-bin min/max and the lookup at both main-path shapes, the time per
    call (one call, and within a run of 50 calls) beside its device time per
    launch and the wrapper's host time, the
@@ -96,7 +106,22 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
-PEAK_F32_OPS_S = 67e12  # H100 SXM, outside the tensor cores
+PEAK_F32_OPS_S = 67e12  # H100 SXM, outside the tensor cores (an FMA counts two)
+PEAK_F32_INSTR_S = PEAK_F32_OPS_S / 2  # f32 instructions a second, an FMA one
+# diffuse_heat's least f32 instructions per foreground pixel and round, on
+# data like the main path's (non-negative heat and sources): one add for
+# each same-label neighbour (counted from the labels), one for a non-zero
+# source, and the correctly rounded division by 9: a multiply and two FMAs
+# (stencil.cu div9_nonneg; scripts/torch_stencil_split.py --sass counts the
+# kernel's); a background pixel needs none
+DIFFUSE_DIV_INSTR = 3
+STENCIL_ROUNDS = 96  # the main path's n_prop and n_iter
+SUCC_MAX_LAUNCHES = 8  # launches a call at 96 rounds, at most
+DIFFUSE_MAX_LAUNCHES = 13
+STENCIL_PROPS = (0, 1, 5, 17, 96, 97)
+STENCIL_ITERS = (1, 8, 9, 10, 96)  # around the kernel's 9 rounds a launch
+BF16_COUNT_SHARE = 0.05  # bf16 vs f32 card labels: object counts within max(1, 5%)
+BF16_MIN_IOU = 0.90  # and worst matched IoU (both ways) at least this
 REPS = 21
 F32_EPS = 2.0 ** -23
 SLICE1_KERNELS = ("successor_prop", "diffuse_heat", "binned_sum_cols_batched")
@@ -296,32 +321,69 @@ def recording(recorders):
     return stack
 
 
+def stencil_checks(rng, dev, base, B, H, W) -> None:
+    """Phase 2, the stencils at one shape: ``successor_prop`` at every
+    ``STENCIL_PROPS`` on a clipped field (as follow_flows builds it) and on
+    an unclipped one with dcodes outside [0, 9); ``diffuse_heat`` at every
+    ``STENCIL_ITERS`` on tiled label maps whose first image has a label
+    touching all four borders, and with a source holding +inf. All
+    ``torch.equal`` to plain (the +inf case: the same bits, NaN positions
+    equal)."""
+    from aliby_tpu_torch.models import flows
+    from aliby_tpu_torch.ops import stencil
+
+    d, k = random_successors(rng, B, H, W)
+    fields = {"clipped": (d, k),
+              "unclipped": (rng.integers(-3, 12, (B, H, W)).astype(np.int32),
+                            rng.integers(1, 2**31 - 1, (B, H, W)).astype(np.int32))}
+    for what, (d, k) in fields.items():
+        dcode, key = torch.from_numpy(d).to(dev), torch.from_numpy(k).to(dev)
+        for n_prop in STENCIL_PROPS:
+            got = stencil.successor_prop(dcode, key, n_prop=n_prop)
+            want = stencil.successor_prop_plain(dcode, key, n_prop=n_prop)
+            sync()
+            if not torch.equal(got, want):
+                raise AssertionError(f"successor_prop != plain at {(B, H, W)}, {what} field, "
+                                     f"n_prop {n_prop}")
+    lab = tiled_labels(base, B, H, W)
+    ring = int(lab.max()) + 1
+    lab[0, 0, :], lab[0, -1, :], lab[0, :, 0], lab[0, :, -1] = ring, ring, ring, ring
+    labels = torch.from_numpy(lab).to(dev)
+    src = flows.label_median_centers(labels, 512).to(torch.float32)
+    for n_iter in STENCIL_ITERS:
+        got = stencil.diffuse_heat(labels, src, n_iter)
+        want = stencil.diffuse_heat_plain(labels, src, n_iter)
+        sync()
+        if not torch.equal(got, want):
+            err = (got - want).abs().max().item()
+            raise AssertionError(f"diffuse_heat != plain at {(B, H, W)}, n_iter {n_iter} "
+                                 f"(max abs {err})")
+    # +inf on a foreground pixel (inf spreads through its label) and on the
+    # background pixel above or left of the first foreground pixel (inf * 0:
+    # NaN in the label beside it)
+    ys, xs = np.nonzero(lab[-1] > 0)
+    src[-1, ys[len(ys) // 2], xs[len(xs) // 2]] = float("inf")
+    src[-1, max(ys[0] - 1, 0), xs[0] - (ys[0] == 0)] = float("inf")
+    for n_iter in (9, STENCIL_ROUNDS):
+        got = stencil.diffuse_heat(labels, src, n_iter)
+        want = stencil.diffuse_heat_plain(labels, src, n_iter)
+        if not same_bits(got, want) or not torch.isnan(want).any():
+            raise AssertionError(f"diffuse_heat != plain at {(B, H, W)}, n_iter {n_iter}, with "
+                                 f"a source of +inf")
+    log(f"[kernels] {(B, H, W)}: successor_prop equal to plain at n_prop {STENCIL_PROPS} "
+        f"(clipped and unclipped fields); diffuse_heat at n_iter {STENCIL_ITERS} (a label "
+        f"touching all four borders) and with sources of +inf (NaN positions equal)")
+
+
 def kernel_checks(rng, dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
-    from aliby_tpu_torch.models import flows
-    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.ops import segsum
     from aliby_tpu_torch.test_data import render_cells
 
     base = np.stack([render_cells(256, 24, rng)[2] for _ in range(4)])
     shapes = [(16, 256, 256), (2, 1080, 1080), (2, 1088, 1088), (3, 200, 312)]
     for B, H, W in shapes:
-        d, k = random_successors(rng, B, H, W)
-        dcode = torch.from_numpy(d).to(dev)
-        key = torch.from_numpy(k).to(dev)
-        for n_prop in (96, 17):
-            got = stencil.successor_prop(dcode, key, n_prop=n_prop)
-            want = stencil.successor_prop_plain(dcode, key, n_prop=n_prop)
-            sync()
-            if not torch.equal(got, want):
-                raise AssertionError(f"successor_prop != plain at {(B, H, W)}, n_prop {n_prop}")
-        labels = torch.from_numpy(tiled_labels(base, B, H, W)).to(dev)
-        src = flows.label_median_centers(labels, 512).to(torch.float32)
-        got = stencil.diffuse_heat(labels, src, 96)
-        want = stencil.diffuse_heat_plain(labels, src, 96)
-        sync()
-        if not torch.equal(got, want):
-            err = (got - want).abs().max().item()
-            raise AssertionError(f"diffuse_heat != plain at {(B, H, W)} (max abs {err})")
+        stencil_checks(rng, dev, base, B, H, W)
         n_bins = 257
         bins = torch.from_numpy(rng.integers(-2, n_bins + 3, (B, H * W)).astype(np.int32)).to(dev)
         vals = torch.stack([
@@ -338,7 +400,7 @@ def kernel_checks(rng, dev) -> None:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
         rel, ratio = check_sums(got, want, vals, bins, n_bins, f"{(B, H, W)}")
         check_sum_order(vals, bins, n_bins, f"{(B, H, W)}")
-        log(f"[kernels] {(B, H, W)}: successor_prop, diffuse_heat bit-equal; "
+        log(f"[kernels] {(B, H, W)}: "
             f"binned_sum_cols_batched counts exact, sums max rel err {rel:.3g}, "
             f"max err / bound {ratio:.3g}, deterministic, bit-equal to the kernel's order "
             f"on the CPU")
@@ -616,7 +678,7 @@ def agree(got, want) -> bool:
 
 
 def kernel_row(name, kernel, plain, library, bytes_, ops, shape, launches,
-               sum_inputs=None) -> dict:
+               sum_inputs=None, ops_rate=PEAK_F32_OPS_S) -> dict:
     """One kernel's line of the report: its time beside its plain version's,
     the library call's (where one exists) and its bound. The kernel's
     output must equal the plain version's on these inputs (per-bin sums,
@@ -630,7 +692,7 @@ def kernel_row(name, kernel, plain, library, bytes_, ops, shape, launches,
             out_k, out_p, *sum_inputs, f"{name} {tuple(shape)}")
     elif not agree(out_k, out_p):
         raise AssertionError(f"{name} != plain on the main path's inputs {tuple(shape)}")
-    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / ops_rate * 1e3
     source = "aliby_tpu_torch/kernels/csrc/" + (
         "stencil.cu" if name in ("successor_prop", "diffuse_heat") else "segsum.cu")
     ms, plain_ms, *library_ms = cuda_ms_turns([kernel, plain] + [library] * (library is not None))
@@ -728,6 +790,29 @@ def report_costs(row: dict, fn, library) -> None:
         f"{row['ms_in_a_run'] / row['library_ms_in_a_run']:.3f}")
 
 
+def stencil_costs(row: dict, fn, wrapper, max_launches: int) -> None:
+    """Adds what one stencil call costs to its kernel's row: launches a
+    call (the wrapper's counter), the device time of each launch, the
+    wrapper's host time, the time a call within a run; fails above
+    ``max_launches`` launches a call."""
+    before = wrapper.launches
+    fn()
+    per_call = wrapper.launches - before
+    parts = device_by_launch(fn)
+    row.update(launches_per_call=per_call,
+               device_ms_per_launch={k: t for k, (t, _) in parts.items()},
+               host_ms=host_ms_per_call(fn), ms_in_a_run=run_ms_per_call(fn))
+    device = ("not measured (the profiler saw no CUDA kernels)" if not parts else ", ".join(
+        f"{k} {t:.4f} ms (recorded {n:.2f} a call)" for k, (t, n) in parts.items()))
+    log(f"[report] {row['name']} {tuple(row['shape'])} per call: {row['ms']:.4f} ms (CUDA events), "
+        f"{per_call} launches, device per launch {device}, host {row['host_ms']:.4f} ms (the "
+        f"wrapper), in a run of 50 calls {row['ms_in_a_run']:.4f} ms a call; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if per_call > max_launches:
+        raise AssertionError(f"{row['name']} made {per_call} launches a call at "
+                             f"{STENCIL_ROUNDS} rounds (at most {max_launches})")
+
+
 def binned_sum_row(vals, bins, n_bins, launches) -> dict:
     from aliby_tpu_torch.ops import segsum
 
@@ -756,25 +841,32 @@ def measure_kernels(recorded: dict, launches: dict) -> dict:
     def measure(name, *args, **kwargs):
         out[name] = kernel_row(name, *args, **kwargs, launches=launches[name])
 
+    n = STENCIL_ROUNDS
     if "successor_prop" in recorded:
         d, k = recorded["successor_prop"][:2]
         B, H, W = d.shape
         px = B * H * W
-        before = stencil.successor_prop.launches
-        stencil.successor_prop(d, k)
-        n_launch = stencil.successor_prop.launches - before
-        rounds = 96 % 6 + 6 * (n_launch - (1 if 96 % 6 else 0))
-        log(f"[report] successor_prop runs {rounds} rounds of 96 ({n_launch} launches) on {(B, H, W)}")
-        measure("successor_prop", lambda: stencil.successor_prop(d, k),
-                lambda: stencil.successor_prop_plain(d, k), None,
-                bytes_=12 * px, ops=rounds * px, shape=(B, H, W))
+        # the kernel computes every round (no early exit): n selects a pixel
+        measure("successor_prop", lambda: stencil.successor_prop(d, k, n),
+                lambda: stencil.successor_prop_plain(d, k, n), None,
+                bytes_=12 * px, ops=n * px, shape=(B, H, W))
+        stencil_costs(out["successor_prop"], lambda: stencil.successor_prop(d, k, n),
+                      stencil.successor_prop, SUCC_MAX_LAUNCHES)
     if "diffuse_heat" in recorded:
         lab, src = recorded["diffuse_heat"][:2]
         B, H, W = lab.shape
         px = B * H * W
-        measure("diffuse_heat", lambda: stencil.diffuse_heat(lab, src, 96),
-                lambda: stencil.diffuse_heat_plain(lab, src, 96), None,
-                bytes_=12 * px, ops=18 * 96 * px, shape=(B, H, W))
+        fg = lab > 0
+        n_fg, n_src = int(fg.sum()), int((src != 0).sum())
+        n_same = sum(int(((stencil.shift(lab, dy, dx, -1) == lab) & fg).sum())
+                     for dy, dx in stencil.OFFSETS)
+        measure("diffuse_heat", lambda: stencil.diffuse_heat(lab, src, n),
+                lambda: stencil.diffuse_heat_plain(lab, src, n), None,
+                bytes_=12 * px, shape=(B, H, W), ops_rate=PEAK_F32_INSTR_S,
+                ops=n * (n_same + n_src + n_fg * DIFFUSE_DIV_INSTR))
+        out["diffuse_heat"]["foreground_share"] = n_fg / px
+        stencil_costs(out["diffuse_heat"], lambda: stencil.diffuse_heat(lab, src, n),
+                      stencil.diffuse_heat, DIFFUSE_MAX_LAUNCHES)
     if "binned_sum_cols_batched" in recorded:
         out["binned_sum_cols_batched"] = binned_sum_row(*recorded["binned_sum_cols_batched"],
                                                         launches["binned_sum_cols_batched"])
@@ -1209,6 +1301,26 @@ def fused_gpu_vs_cpu(what: str, pixels) -> None:
                      f"{what}, sums in the kernel's order")
 
 
+def bf16_vs_f32_labels(bf16, f32, what: str) -> None:
+    """The main path's bf16 labels on the card against f32 labels on the
+    card of the same fields: per label map, object counts within
+    max(1, BF16_COUNT_SHARE of the f32 count) and the worst matched IoU
+    (both ways) at least BF16_MIN_IOU."""
+    worst_iou, worst_diff, bad = 1.0, 0, []
+    for obj, (a, b) in enumerate(zip(bf16, f32)):
+        for f, (x, y) in enumerate(zip(a, b)):
+            nx, ny = int(x.max()), int(y.max())
+            iou = min(matched_iou(x, y), matched_iou(y, x))
+            worst_iou, worst_diff = min(worst_iou, iou), max(worst_diff, abs(nx - ny))
+            if abs(nx - ny) > max(1, BF16_COUNT_SHARE * ny) or iou < BF16_MIN_IOU:
+                bad.append(f"object {obj} field {f}: {nx} vs {ny} objects, IoU {iou:.4f}")
+    log(f"[slice] bf16 vs f32 labels on the card ({what}): largest object-count difference "
+        f"{worst_diff}, worst matched IoU {worst_iou:.6f} (bound: counts within max(1, "
+        f"{BF16_COUNT_SHARE:.0%}), IoU >= {BF16_MIN_IOU})")
+    if bad:
+        raise AssertionError(f"bf16 labels beyond the bound against f32 ({what}): {bad}")
+
+
 def raster_checks(seg_labels, pixels, dev, cap: int = 64) -> None:
     """The integer rasters and the circles that decide which pixels a
     feature sums, on the card against the CPU, on the segmentation's own
@@ -1421,6 +1533,10 @@ def main() -> int:
                 raise AssertionError(f"GPU/CPU matched IoU {iou:.4f} < 0.99 (object {obj}, field {f})")
     log(f"[slice] f32 GPU vs CPU: object counts equal, worst matched IoU {worst:.6f}, "
         f"{n_equal}/16 label maps bit-equal")
+    gpu_big = segment_grouped([dispatch_segmenter("cellpose", 0, second_channel=3, **f32),
+                               dispatch_segmenter("cellpose", 3, second_channel=0, **f32)], big)
+    bf16_vs_f32_labels(run1, gpu, "8 fields x 2 objects")
+    bf16_vs_f32_labels(big_masks, gpu_big, "the 1080x1080 field x 2 objects")
     raster_checks(plain_seg, pixels, dev)
     for what in FUSED_PATHS:
         fused_gpu_vs_cpu(what, pixels)

@@ -34,13 +34,96 @@ def _successors(rng, B, H, W):
 
 
 @pytest.mark.parametrize("shape", [(4, 64, 64), (3, 200, 312), (1, 33, 31)])
-@pytest.mark.parametrize("n_prop", [5, 17, 96])
+@pytest.mark.parametrize("n_prop", [0, 1, 5, 17, 96, 97])
 def test_successor_prop_kernel_bit_equal(dev, shape, n_prop):
     d, k = (torch.from_numpy(a).to(dev) for a in _successors(np.random.default_rng(0), *shape))
     before = stencil.successor_prop.launches
     got = stencil.successor_prop(d, k, n_prop=n_prop)
-    assert stencil.successor_prop.launches > before
+    assert stencil.successor_prop.launches == before + n_prop.bit_length()
     assert torch.equal(got, stencil.successor_prop_plain(d, k, n_prop=n_prop))
+
+
+@pytest.mark.parametrize("n_prop", [0, 1, 5, 17, 96, 97])
+def test_successor_prop_kernel_unclipped_field(dev, n_prop):
+    """Successors that leave the grid (key 0 there) and dcodes outside
+    [0, 9) (they stay), as no main-path field has them."""
+    rng = np.random.default_rng(n_prop)
+    d = torch.from_numpy(rng.integers(-3, 12, (3, 67, 45)).astype(np.int32)).to(dev)
+    k = torch.from_numpy(rng.integers(1, 2**31 - 1, (3, 67, 45)).astype(np.int32)).to(dev)
+    got = stencil.successor_prop(d, k, n_prop=n_prop)
+    want = stencil.successor_prop_plain(d, k, n_prop=n_prop)
+    assert torch.equal(got, want)
+    assert n_prop < 17 or (want == 0).any()
+
+
+def _heat_inputs(rng, B, H, W, dev):
+    from aliby_tpu_torch.test_data import render_cells
+
+    labels = np.stack([render_cells(max(H, W), 12, rng)[2][:H, :W] for _ in range(B)])
+    lab = torch.from_numpy(labels.astype(np.int32)).to(dev)
+    return lab, label_median_centers(lab, 64).to(torch.float32)
+
+
+@pytest.mark.parametrize("n_iter", [0, 1, 8, 9, 10, 96])
+def test_diffuse_heat_kernel_round_counts(dev, n_iter):
+    """Round counts around the kernel's 9 rounds a launch, on a ragged field
+    smaller than two tiles and on one smaller than a tile."""
+    for shape in ((2, 100, 77), (1, 33, 31)):
+        lab, src = _heat_inputs(np.random.default_rng(n_iter), *shape, dev)
+        before = stencil.diffuse_heat.launches
+        got = stencil.diffuse_heat(lab, src, n_iter)
+        assert stencil.diffuse_heat.launches == before + stencil.diffuse_launches(n_iter)
+        assert torch.equal(got, stencil.diffuse_heat_plain(lab, src, n_iter))
+
+
+def test_diffuse_heat_kernel_border_label_and_infinity(dev):
+    """A label touching all four borders, background holes, a second label,
+    and sources holding +inf (on a foreground and a background pixel): the
+    same bits as plain, NaN positions equal (inf * 0 spreads NaN)."""
+    labels = np.ones((2, 60, 71), np.int32)
+    labels[:, 10:25, 10:40] = 2
+    labels[:, 45, 60] = 0
+    labels[1, 0, :] = 0
+    lab = torch.from_numpy(labels).to(dev)
+    src = label_median_centers(lab, 64).to(torch.float32)
+    for n_iter in (9, 96):
+        got = stencil.diffuse_heat(lab, src, n_iter)
+        assert torch.equal(got, stencil.diffuse_heat_plain(lab, src, n_iter))
+    edges = (got[0, 0, :], got[0, -1, :], got[0, :, 0], got[0, :, -1])
+    assert all((e > 0).any() for e in edges)
+    src[0, 30, 35] = float("inf")
+    src[1, 45, 60] = float("inf")
+    for n_iter in (9, 96):
+        got = stencil.diffuse_heat(lab, src, n_iter)
+        want = stencil.diffuse_heat_plain(lab, src, n_iter)
+        assert torch.isnan(want).any()
+        assert _same_bits(got, want)
+
+
+def test_stencils_launches_per_call_and_no_host_sync(dev):
+    """At the main path's 96 rounds: successor_prop 7 launches (<= 8),
+    diffuse_heat 12 (<= 13), with no host synchronisation inside either
+    call and nothing else on the device (no memset)."""
+    d, k = (torch.from_numpy(a).to(dev) for a in _successors(np.random.default_rng(3), 4, 64, 64))
+    lab, src = _heat_inputs(np.random.default_rng(3), 4, 64, 64, dev)
+    stencil.successor_prop(d, k)
+    stencil.diffuse_heat(lab, src)  # built and loaded before the sync check
+    torch.cuda.synchronize()
+    before = stencil.successor_prop.launches, stencil.diffuse_heat.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stencil.successor_prop(d, k, n_prop=96)
+        stencil.diffuse_heat(lab, src, 96)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_prop = stencil.successor_prop.launches - before[0]
+    n_heat = stencil.diffuse_heat.launches - before[1]
+    assert n_prop == 7 <= 8 and n_heat == 12 <= 13
+    for fn, names in ((lambda: stencil.successor_prop(d, k), ("succ_square", "succ_gather")),
+                      (lambda: stencil.diffuse_heat(lab, src),
+                       ("diffuse_flags", "diffuse_rounds"))):
+        events = _device_kernels(fn)
+        assert all(any(n in key for n in names) for key in events), events
 
 
 @pytest.mark.parametrize("shape", [(4, 64, 64), (3, 200, 312)])
@@ -478,3 +561,46 @@ def test_sqrt_on_the_card_is_correctly_rounded(dev):
                         np.random.default_rng(4).random(20000).astype(np.float32) * 3])
     want = np.sqrt(x.astype(np.float64)).astype(np.float32)
     np.testing.assert_array_equal(_sqrt(torch.from_numpy(x).to(dev)).cpu().numpy(), want)
+
+
+def test_binned_minmax_on_two_streams(dev):
+    """Overlapping calls on two streams, with different grids (G blocks per
+    image) over the same image indices, each equal to plain: the tickets
+    are kept per stream."""
+    rng = np.random.default_rng(12)
+    cases = [(16, 65536, 2, 65), (2, 1080 * 1080, 1, 257)]
+    inputs = [_minmax_inputs(rng, *c, dev) for c in cases]
+    assert len({segsum.minmax_scratch(B, N, K * n)[0] for B, N, K, n in cases}) == 2
+    want = [segsum.binned_minmax_batched_plain(v, b, c[3]) for (v, b), c in zip(inputs, cases)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (s, (v, b), c) in enumerate(zip(streams, inputs, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(segsum.binned_minmax_batched(v, b, c[3]))
+    torch.cuda.synchronize()
+    for got, (pmn, pmx) in zip(outs, want):
+        for mn, mx in got:
+            assert _equal_with_nan(mn, pmn) and _equal_with_nan(mx, pmx)
+
+
+@pytest.mark.parametrize("B,K,n_bins", [(1, 1, 1), (3, 5, 17)])
+def test_zero_pixels_on_the_card(dev, B, K, n_bins):
+    """N = 0: plain's tensors (zero sums, (+inf, -inf), an empty lookup),
+    with no launch."""
+    vals = torch.zeros(B, 0, K, device=dev)
+    bins = torch.zeros(B, 0, dtype=torch.int32, device=dev)
+    table = torch.ones(B, 4, K, device=dev)
+    counters = (segsum.binned_sum_cols_batched, segsum.binned_minmax_batched,
+                segsum.table_lookup_batched)
+    before = [c.launches for c in counters]
+    sums = segsum.binned_sum_cols_batched(vals, bins, n_bins)
+    mn, mx = segsum.binned_minmax_batched(vals, bins, n_bins)
+    got = segsum.table_lookup_batched(table, bins)
+    assert [c.launches for c in counters] == before
+    assert torch.equal(sums, segsum.binned_sum_cols_batched_plain(vals, bins, n_bins))
+    pmn, pmx = segsum.binned_minmax_batched_plain(vals, bins, n_bins)
+    assert torch.equal(mn, pmn) and torch.equal(mx, pmx) and mn.shape == (B, n_bins, K)
+    assert got.shape == segsum.table_lookup_batched_plain(table, bins).shape == (B, 0, K)
+    assert sums.is_cuda and mn.is_cuda and got.is_cuda

@@ -492,3 +492,32 @@ def test_sum_scratch_follows_the_input(B, N, K, n_bins):
     assert n_f == rows * K and rows <= B * (N + segsum.CHUNK - 1)
     assert rows <= B * n_chunks * n_bins and n_l <= rows
     assert n_f + n_i + 2 * n_l <= rows * (K + 4) + B * n_chunks + 4 * B * n_bins + 2
+
+
+# ---------------------------------------------------------------------------
+# zero pixels: plain's tables on every device (the card returns them without
+# a launch; tests/test_torch_kernels_cuda.py pins that side)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,K,n_bins", [(1, 1, 1), (3, 5, 17)])
+def test_zero_pixels_give_plain_tables(B, K, n_bins):
+    """The JAX package's scatter sums and min/max do not take N = 0 (their
+    reshape to (0, -1) raises), so the contract is plain's own: zero sums,
+    (+inf, -inf) min/max; the lookup gives an empty result, as the JAX
+    gather does."""
+    vals = torch.zeros(B, 0, K)
+    bins = torch.zeros(B, 0, dtype=torch.int32)
+    sums = segsum.binned_sum_cols_batched(vals, bins, n_bins)
+    assert sums.shape == (B, n_bins, K) and sums.dtype == torch.float32
+    assert torch.equal(sums, torch.zeros(B, n_bins, K))
+    mn, mx = segsum.binned_minmax_batched(vals, bins, n_bins)
+    assert torch.equal(mn, torch.full((B, n_bins, K), float("inf")))
+    assert torch.equal(mx, torch.full((B, n_bins, K), float("-inf")))
+    table = np.random.default_rng(B).normal(size=(B, 4, K)).astype(np.float32)
+    got = segsum.table_lookup_batched(torch.from_numpy(table), bins)
+    want = jax.vmap(R.table_lookup)(jnp.asarray(table), jnp.zeros((B, 0), jnp.int32))
+    assert got.shape == want.shape == (B, 0, K) and got.dtype == torch.float32
+    image_bins = torch.zeros(B, 0, 7, dtype=torch.int32)  # image-shaped, one side empty
+    assert segsum.table_lookup_batched(torch.from_numpy(table), image_bins).shape == (B, 0, 7, K)
+    assert torch.equal(binned_sum_cols(vals, bins, n_bins), torch.zeros(B, n_bins, K))
