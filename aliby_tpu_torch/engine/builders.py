@@ -6,13 +6,16 @@ Produces the pipeline dict: per-object ``segment_<obj>`` steps, one
 ``extractmulti_<obj>`` with per-channel-pair colocalisation, ``passed_data``
 wiring masks <- segment and pixels <- tile, ``passed_methods`` feeding the
 segmenters through ``("tile", "get_fczyx")``, and the default ``save`` of
-the segment steps.
+the segment steps. ``trackastra_parameters`` (with no address) attaches the
+in-process whole-movie linker as the ``track_global`` global step.
 """
 
 from __future__ import annotations
 
 from itertools import combinations, product
 from typing import Sequence
+
+from aliby_tpu_torch.engine.core import _attach_trackastra
 
 DEFAULT_FEATURES = (
     "radial_zernikes",
@@ -51,10 +54,10 @@ def build_pipeline_steps(
     segmenter_extra_kwargs: dict | None = None,
 ) -> dict:
     """Build the standard pipeline definition (no IO stamped yet)."""
-    if trackastra_address is not None or trackastra_parameters is not None:
+    if trackastra_address is not None:
         raise NotImplementedError(
-            "trackastra tracking steps need track/ and engine/core.py "
-            "(ROADMAP queue 1, item 9)"
+            "a remote trackastra server needs the clients of net/ (ROADMAP queue 1, item 8); "
+            "trackastra_address=None selects the in-process linker"
         )
     if channels_to_segment is None:
         channels_to_segment = {"nuclei": 1, "cell": 0}
@@ -112,4 +115,6 @@ def build_pipeline_steps(
     }
     if steps_to_write is not None:
         pipeline["save"] = list(steps_to_write)
+    if trackastra_parameters is not None:
+        _attach_trackastra(pipeline, channels_to_segment, None, trackastra_parameters)
     return pipeline

@@ -194,12 +194,19 @@ def compile_fused_step(objects: Sequence[FusedObject], max_labels: int = 256,
             out_feats.append(obj_out)
         return {"labels": list(labels), "features": out_feats}
 
+    def device_labels(handle) -> torch.Tensor:
+        """A handle's labels on the device: (n_objects, F, Y, X) int32."""
+        labels_pack = handle[0]
+        labels = labels_pack.to(torch.int32)
+        return labels if labels_pack.dtype == torch.uint8 else labels & 0xFFFF
+
     def run(pixels):
         return collect(dispatch(pixels))
 
     run.plans = plans
     run.dispatch = dispatch
     run.collect = collect
+    run.device_labels = device_labels
     run.state = state
     return run
 

@@ -7,13 +7,16 @@ them into plan entries over image slots (channel, z-reduction), and
 :func:`tree_collect` evaluates every entry over a batch of label maps into
 one ``(n_names, F, max_labels)`` block. :class:`FusedTreeResult` turns that
 block back into the reference's ``(tileid_instructions, results)`` rows or
-its wide table.
+its wide table. :func:`process_tree_masks` is the interpreted path (one
+step, one timepoint) and :func:`extraction_columns` /
+:func:`format_extraction` the wide table, as numpy columns or as a pyarrow
+table (pyarrow imported inside).
 
 Every cp_measure family is ported (``sizeshape``, ``intensity``, ``feret``
 and the families of ``extract/texture.py``) and the colocalisation pair
 (``corr``). The yeast/trap entries (cellfuns scalars, localisation, trap
 background, channel combinations) raise ``NotImplementedError`` naming
-their ROADMAP item.
+their ROADMAP item, as do the BABY path's ``_overlap`` forms.
 """
 
 from __future__ import annotations
@@ -68,7 +71,8 @@ PIXEL_METRICS = ("mean", "total", "total_squared", "median", "max2p5pc",
                  "max5px_median", "std", "moment_of_inertia")
 TRAP_METRICS = ("imBackground", "background_max5")
 
-_CELLFUNS_ITEM = "extract/cellfuns.py and extract/localisation.py (ROADMAP queue 1, item 10)"
+_CELLFUNS_ITEM = "extract/cellfuns.py and extract/localisation.py (ROADMAP queue 1, item 5)"
+_OVERLAP_ITEM = "the BABY path's overlapping masks (ROADMAP queue 1, item 5)"
 
 
 def _cp_family_fn(name: str):
@@ -317,3 +321,135 @@ class FusedTreeResult:
         if not len(cols["tile"]):
             return pa.Table.from_pydict({"tile": [], "label": []})
         return pa.Table.from_pydict(cols)
+
+
+# ---------------------------------------------------------------------------
+# The interpreted path (one extract step, one timepoint)
+# ---------------------------------------------------------------------------
+
+
+def _reduce_z(pixels: np.ndarray, method) -> np.ndarray:
+    """Reduce the leading (Z) axis on the host, as the reference's
+    interpreted path does."""
+    if method is None or method == "None":
+        return pixels
+    m = str(method)
+    if m == "max":
+        return pixels.max(axis=0)
+    if m == "min":
+        return pixels.min(axis=0)
+    if m == "mean":
+        return pixels.mean(axis=0)
+    if m == "median":
+        return np.median(pixels, axis=0)
+    if m in ("add", "sum"):
+        return pixels.sum(axis=0)
+    raise KeyError(f"Unknown z-reduction {method!r}")
+
+
+def _max_labels_bucket(n: int) -> int:
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+def process_tree_masks(tree: dict, masks, pixels, ncores=None,
+                       cp_measure_kwargs: dict | None = None, progress_bar: bool = False,
+                       device=None, **kwargs):
+    """Compute every (object x instruction) value for one timepoint.
+
+    ``masks`` is a per-tile list of 2-D label maps, ``pixels`` the tile
+    stack ``(F, C, Z, Y, X)``; the tree runs on ``device`` (``cuda`` by
+    default). ``ncores`` is accepted for API compatibility and ignored.
+    Returns a lazy :class:`FusedTreeResult` (the reference's
+    ``(tileid_instructions, results)``).
+    """
+    from aliby_tpu_torch.device import resolve_device
+
+    del ncores, progress_bar
+    device = resolve_device(device)
+    if isinstance(masks, np.ndarray) and masks.ndim == 3:
+        labels = masks.astype(np.int32)
+    else:
+        labels = np.stack([np.asarray(m) for m in masks]).astype(np.int32)
+    pixels = np.asarray(pixels)
+    if pixels.ndim == 6:  # leading T of size 1
+        pixels = pixels[0]
+    F = labels.shape[0]
+    instructions = kv(flatten(tree))
+    n_per_tile = [int(labels[f].max()) for f in range(F)]
+    if not any(n_per_tile) or not instructions:
+        return (), []
+    max_labels = _max_labels_bucket(max(n_per_tile + [1]))
+    entries, slot_of, inst_lookup = compile_plan(instructions, cp_measure_kwargs or {})
+    imgs = [None] * len(slot_of)
+    for (ch, red_z), si in slot_of.items():
+        stack = np.stack([_reduce_z(np.asarray(pixels[f, ch], np.float32), red_z)
+                          for f in range(F)])
+        imgs[si] = torch.from_numpy(np.ascontiguousarray(stack)).to(device)
+    with torch.no_grad():
+        names, arr = tree_collect(entries, torch.from_numpy(labels).to(device), imgs, max_labels)
+    return FusedTreeResult(instructions, inst_lookup, names, arr.cpu().numpy(), n_per_tile)
+
+
+def process_tree_masks_overlap(*args, **kwargs):
+    raise NotImplementedError(f"process_tree_masks_overlap: {_OVERLAP_ITEM}")
+
+
+# ---------------------------------------------------------------------------
+# Formatting (column contract of the reference's extract.py:520-599)
+# ---------------------------------------------------------------------------
+
+
+def extraction_columns(instructions_result) -> dict:
+    """The wide table of one extraction as ordered numpy columns: ``tile``,
+    ``label`` (int64), then the metric columns (float64) sorted by name. A
+    value that a row lacks is masked (``numpy.ma``), as the reference's
+    table holds a null there."""
+    if isinstance(instructions_result, FusedTreeResult):
+        return instructions_result.columns()
+    if isinstance(instructions_result, np.ndarray):
+        raise NotImplementedError("embedder outputs: models/embedder.py (ROADMAP queue 1, item 8)")
+    rows: dict = {}
+    metric_names: set = set()
+    for inst, metrics in zip(*instructions_result, strict=True):
+        key = (inst[0][0], inst[0][-1])
+        branch = "/".join(str(x) for x in inst[1])
+        if isinstance(metrics, (int, float, np.integer, np.floating)):
+            name = f"{branch}/{inst[1][-1]}"
+            rows.setdefault(key, {})[name] = float(metrics)
+            metric_names.add(name)
+        elif isinstance(metrics, dict):
+            for k, values in metrics.items():
+                # a family key that repeats the metric name collapses (the
+                # coloc families): "(0, 3)/None/max/pearson"
+                name = branch if k == str(inst[1][-1]) else f"{branch}/{k}"
+                for value in np.asarray(values).reshape(-1):
+                    rows.setdefault(key, {})[name] = float(value)
+                    metric_names.add(name)
+        else:
+            raise TypeError(f"the metrics are in an invalid value: {type(metrics)}. "
+                            "Valid values are int/float or dict.")
+    cols = {"tile": np.asarray([k[0] for k in rows], np.int64),
+            "label": np.asarray([k[1] for k in rows], np.int64)}
+    for n in sorted(metric_names):
+        vals = [r.get(n) for r in rows.values()]
+        missing = np.asarray([v is None for v in vals], bool)
+        col = np.asarray([np.nan if v is None else v for v in vals], np.float64)
+        cols[n] = np.ma.MaskedArray(col, mask=missing) if missing.any() else col
+    return cols
+
+
+def format_extraction(instructions_result):
+    """The wide ``pyarrow.Table`` of :func:`extraction_columns`."""
+    import pyarrow as pa
+
+    cols = extraction_columns(instructions_result)
+    if not len(cols["tile"]):
+        return pa.Table.from_pydict({"tile": [], "label": []})
+    return pa.Table.from_pydict(cols)
+
+
+def format_extraction_overlap(instructions_result):
+    raise NotImplementedError(f"format_extraction_overlap: {_OVERLAP_ITEM}")

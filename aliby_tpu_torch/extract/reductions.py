@@ -15,7 +15,7 @@ so the CPU and the card compute the same bits as far as the reductions'
 summation order allows.
 
 Not ported yet (their caller, cellfuns, waits for ROADMAP queue 1 item
-10): ``topk_*`` and ``distance_to_boundary``.
+5): ``topk_*`` and ``distance_to_boundary``.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 ``dispatch_segmenter(kind, channel_to_segment, ...)`` returns
 ``segment(pixels) -> masks`` where ``pixels`` is ``(F, C, Z, Y, X)`` (a
 leading T of size 1 is dropped) and ``masks`` is a list of per-tile 2-D
-uint16 label maps. This slice ports the ``cellpose`` kind: percentile
+uint16 label maps. The ``cellpose`` kind is ported: percentile
 normalisation, the U-Net with the bundled weights, and mask
-reconstruction, on ``cuda`` unless ``device="cpu"`` is passed.
+reconstruction, on ``cuda`` unless ``device="cpu"`` is passed; with
+``three_d=True`` each z plane is segmented and the planes are stitched.
 """
 
 from __future__ import annotations
@@ -25,6 +26,11 @@ from aliby_tpu_torch.models.weights import (
     read_flax_checkpoint,
 )
 from aliby_tpu_torch.ops.imageops import percentile_pair
+from aliby_tpu_torch.ops.labels import relabel_sequential
+from aliby_tpu_torch.track.trackers import stitch_sequence
+
+
+UNET_BATCH_PIXELS = 1 << 20  # pixels in one U-Net forward (the micro-batch)
 
 
 def _to_uint16(mask: np.ndarray) -> np.ndarray:
@@ -85,7 +91,7 @@ class CellposeTorch:
         ):
             raise NotImplementedError(
                 "torch Cellpose checkpoints (models/cpnet.py) are not ported "
-                "yet: ROADMAP queue 1, item 10"
+                "yet: ROADMAP queue 1, item 8"
             )
         self.device = resolve_device(device)
         self.model = CellposeNet(**model_kwargs)
@@ -106,11 +112,26 @@ class CellposeTorch:
         self.flow_threshold = None if flow_threshold is None else float(flow_threshold)
         self.fill_holes = bool(fill_holes)
 
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The U-Net over (B, H, W, C) in micro-batches whose size follows
+        the image size alone (``UNET_BATCH_PIXELS`` pixels, 1 to 16 images),
+        the last one padded with zero images. On the card the U-Net's output
+        bits depend on the batch size (the rest of the step does not:
+        ``scripts/torch_batch_identity.py``), and an image's labels must not
+        depend on how many images it is batched with, so that the per-tp,
+        movie and mesh runners give the same bits."""
+        B, H, W, _ = x.shape
+        m = max(1, min(16, UNET_BATCH_PIXELS // (H * W)))
+        pad = (-B) % m
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        return torch.cat([self.model(x[i:i + m]) for i in range(0, B + pad, m)])[:B]
+
     @torch.no_grad()
     def _segment_all(self, images: torch.Tensor) -> torch.Tensor:
         """(F, 2, H, W) raw float on the device -> (F, H, W) int32 labels."""
         x = _normalize_percentile(images.permute(0, 2, 3, 1).to(torch.float32))
-        pred = self.model(x)
+        pred = self._forward(x)
         flows = _div(torch.stack([pred[..., 0], pred[..., 1]], dim=1), 5.0)
         return masks_from_flows(
             flows,
@@ -152,6 +173,24 @@ def _get_engine(**kw) -> CellposeTorch:
     return _ENGINE_CACHE[key]
 
 
+def _segment_3d(engine, pixels: np.ndarray, channel: int, second_channel: int | None,
+                stitch_threshold: float) -> list[np.ndarray]:
+    """The reference's 3-D semantics (``segment/dispatch.py:214-247``):
+    segment each z plane, IoU-stitch the labels across z, max-project to one
+    2-D label map and relabel it sequentially."""
+    main_z = pixels[:, channel]  # (F, Z, Y, X)
+    sec_z = pixels[:, second_channel] if second_channel is not None else np.zeros_like(main_z)
+    out = []
+    for f in range(main_z.shape[0]):
+        z_masks = engine.segment_tiles(np.stack([main_z[f], sec_z[f]], axis=1))  # (Z, 2, Y, X)
+        stitched = stitch_sequence(
+            torch.from_numpy(np.stack(z_masks).astype(np.int32)).to(engine.device),
+            max_labels=engine.max_labels, iou_threshold=stitch_threshold)
+        relab, _ = relabel_sequential(stitched.amax(dim=0), engine.max_labels)
+        out.append(_to_uint16(relab.cpu().numpy()))
+    return out
+
+
 def _make_cellpose_segmenter(
     channel_to_segment: int = 0,
     second_channel: int | None = None,
@@ -159,11 +198,6 @@ def _make_cellpose_segmenter(
     stitch_threshold: float = 0.01,
     **kwargs,
 ):
-    if three_d:
-        raise NotImplementedError(
-            "three_d=True stitches z planes with track/ (ROADMAP queue 1, item 9)"
-        )
-    del stitch_threshold
     engine = _get_engine(
         pretrained_path=kwargs.get("pretrained_path"),
         model_kwargs=kwargs.get("model_kwargs"),
@@ -189,10 +223,15 @@ def _make_cellpose_segmenter(
         return np.stack([main, sec], axis=1)
 
     def segment(pixels, **_ignored):
+        pixels = _drop_leading_time(np.asarray(pixels)).astype(np.float32)
+        if three_d and pixels.shape[2] > 1:
+            return _segment_3d(engine, pixels, channel_to_segment, second_channel,
+                               stitch_threshold)
         return engine.segment_tiles(images(pixels))
 
     segment.engine = engine
     segment.images = images
+    segment.three_d = three_d
     return segment
 
 
@@ -201,9 +240,12 @@ def segment_grouped(segmenters, pixels) -> list[list[np.ndarray]]:
     share an engine run as ONE batch (the fused step's grouping,
     ``aliby_tpu/engine/fused.py``). Returns each segmenter's masks."""
     groups: dict[int, list[int]] = {}
-    for i, seg in enumerate(segmenters):
-        groups.setdefault(id(seg.engine), []).append(i)
     out: list = [None] * len(segmenters)
+    for i, seg in enumerate(segmenters):
+        if seg.three_d:  # z planes stitched one field at a time
+            out[i] = seg(pixels)
+        else:
+            groups.setdefault(id(seg.engine), []).append(i)
     for members in groups.values():
         imgs = [segmenters[i].images(pixels) for i in members]
         masks = segmenters[members[0]].engine.segment_tiles(np.concatenate(imgs))
@@ -214,11 +256,11 @@ def segment_grouped(segmenters, pixels) -> list[list[np.ndarray]]:
 
 
 _NOT_PORTED = {
-    "threshold": "the threshold segmenter needs ops/edt and the rest of ops/labels "
-                 "(ROADMAP queue 1, item 6)",
-    "baby": "models/baby.py (ROADMAP queue 1, item 10)",
-    "spots": "models/spots.py (ROADMAP queue 1, item 10)",
-    "spotiflow": "models/spots.py (ROADMAP queue 1, item 10)",
+    "threshold": "the threshold segmenter needs the rest of ops/labels and ops/imageops "
+                 "(ROADMAP queue 1, item 4)",
+    "baby": "models/baby.py (ROADMAP queue 1, item 5)",
+    "spots": "models/spots.py (ROADMAP queue 1, item 8)",
+    "spotiflow": "models/spots.py (ROADMAP queue 1, item 8)",
 }
 
 
@@ -230,6 +272,6 @@ def dispatch_segmenter(kind: str = "cellpose", channel_to_segment: int = 0, **kw
     if kind.startswith("nahual"):
         raise NotImplementedError(
             f"segmenter kind {kind!r}: the remote clients of net/ are not ported "
-            "(ROADMAP queue 1, item 10)"
+            "(ROADMAP queue 1, item 8)"
         )
     raise ValueError(f"Unknown segmenter kind {kind!r}")

@@ -1,5 +1,5 @@
 """Exact order statistics and percentiles (counterpart of the selection part
-of ``aliby_tpu/ops/imageops.py``).
+of ``aliby_tpu/ops/imageops.py``), and the tiler's host phase correlation.
 
 Rows are the last axis; leading axes are a batch. Order statistics are
 taken over the monotone uint32 encoding of IEEE-754 f32 (held in int64),
@@ -60,3 +60,22 @@ def percentile_pair(x: torch.Tensor, q_lo: float, q_hi: float):
     out_lo = vals[..., 0] + (vals[..., 1] - vals[..., 0]) * t[0]
     out_hi = vals[..., 2] + (vals[..., 3] - vals[..., 2]) * t[1]
     return out_lo, out_hi
+
+
+def phase_cross_correlation_host(reference: np.ndarray, moving: np.ndarray) -> np.ndarray:
+    """Host (numpy) pixel-precision phase correlation: the (dy, dx) shift
+    registering ``moving`` to ``reference`` (skimage's
+    ``phase_cross_correlation`` at ``upsample_factor=1``). The drift tracker
+    calls it once per (position, timepoint) on one frame pair, a few-ms FFT
+    that the host does while the device computes."""
+    A = np.fft.rfft2(np.asarray(reference, np.float32))
+    B = np.fft.rfft2(np.asarray(moving, np.float32))
+    corr = np.fft.irfft2(A * np.conj(B), s=reference.shape)
+    idx = int(np.argmax(np.abs(corr)))
+    H, W = reference.shape
+    dy, dx = idx // W, idx % W
+    if dy > H // 2:
+        dy -= H
+    if dx > W // 2:
+        dx -= W
+    return np.array([dy, dx], np.float32)

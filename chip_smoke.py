@@ -83,8 +83,30 @@ Phases, in order; any failure exits non-zero:
    each fused
    step's fields/s, stage breakdown and peak memory, the default bank's
    device idle share; the ``kernels`` JSON line (six kernels, launches counted
-   over one default-bank step); the card's name and power limit;
+   over one default-bank step, and a seventh row: the trackers'
+   intersection count, phase 5's); the card's name and power limit;
    and, last, ``{"ok": true, "device": {...}}``.
+5. runner (slice 4): 2 positions x 7 timepoints x 5 channels x 1 z x
+   1080x1080 uint16 (``test_data.cellpainting_movie``: cells drift, a few
+   appear and vanish) written to a zlib zarr directory store
+   (``io.zarrlite``), found by ``DatasetZarr``; the default-bank pipeline
+   with a stitch tracker per object (max_labels 256, IoU 0.25), mono tile,
+   compiled, the segment and tracker steps saved, through (a) the per-tp
+   path (``run_pipeline_return_state``, ``movie: False``), (b) the movie
+   path (chunks of 3: a tracker carry and a ragged one-tp tail) and (c)
+   ``run_positions_mesh_states`` over both positions (chunks of 3). No
+   pyarrow is needed: profiles are compared as ``profile_columns``. Checks:
+   kernels 1-5 launched in each run; the fused step's sticky wide pass;
+   profile columns (NaN equal), tracker states and every saved ``.npz``
+   identical across (a), (b) and (c); the card's tracks bit-equal to the
+   CPU's ``stitch_movie`` on the card's own labels; each tp's largest global
+   label at least frame 0's object count; every chunk's ``track_chunk``
+   under ``torch.cuda.set_sync_debug_mode("error")``. Prints field-tps/s
+   and peak memory of each run, the ``ALIBY_MESH_TIMING`` split, the device
+   idle share of a short window of the per-tp and mesh paths, the time of
+   one ``stitch_movie`` chunk and one ``stitch_pair`` batch, and the
+   intersection count's kernel row (phase 4's measurements, at the mesh's
+   (2, 1,166,400, 1) -> 66,049 bins). Each phase prints its seconds.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
 result. Weights are the bundled checkpoint; inputs come from fixed seeds.
@@ -132,6 +154,8 @@ REPLACES = {
     "binned_minmax_batched": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched": "aliby_tpu/ops/pallas_segsum.py:302",
     "segment_sum_matmul": "aliby_tpu/ops/pallas_segsum.py:64",
+    "binned_sum_cols_batched (stitch_pair intersection count)":
+        "aliby_tpu/ops/pallas_segsum.py:234",
 }
 SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
 DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
@@ -813,7 +837,7 @@ def stencil_costs(row: dict, fn, wrapper, max_launches: int) -> None:
                              f"{STENCIL_ROUNDS} rounds (at most {max_launches})")
 
 
-def binned_sum_row(vals, bins, n_bins, launches) -> dict:
+def binned_sum_row(vals, bins, n_bins, launches, name="binned_sum_cols_batched") -> dict:
     from aliby_tpu_torch.ops import segsum
 
     Bv, K = bins.shape[0], vals.shape[-1]
@@ -822,7 +846,7 @@ def binned_sum_row(vals, bins, n_bins, launches) -> dict:
     idx = segsum._flat_index(bins.reshape(Bv, -1), n_bins)
     flat_vals = vals.reshape(-1, K).to(torch.float32)
     acc = torch.zeros(Bv * n_bins + 1, K, device=vals.device)  # index_add returns a new tensor
-    return kernel_row("binned_sum_cols_batched",
+    return kernel_row(name,
                       lambda: segsum.binned_sum_cols_batched(vals, bins, n_bins),
                       lambda: segsum.binned_sum_cols_batched_plain(vals, bins, n_bins),
                       lambda: acc.index_add(0, idx, flat_vals),
@@ -1013,9 +1037,10 @@ def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
         f"{k} {v:.2f} ms ({100 * v / total:.0f}%)" for k, v in med.items()))
 
 
-def device_share(fn, what="one batch") -> None:
+def device_share(fn, what="one batch") -> dict | None:
     """Device-busy share of one run of ``fn`` and its top kernels, from
-    torch.profiler (CUDA kernel self time over wall time)."""
+    torch.profiler (CUDA kernel self time over wall time); None when the
+    profiler saw no CUDA kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1032,13 +1057,15 @@ def device_share(fn, what="one batch") -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
         log(f"[profile] {what}: device time not measured (the profiler saw no CUDA kernels)")
-        return
+        return None
     n_kernels = sum(e.count for e in events)
     log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}%, "
         f"{n_kernels} kernels")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms in {e.count} calls")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "kernels": n_kernels}
 
 
 def sum_breakdown(costes, wide_costes, segment_shape, dev) -> None:
@@ -1265,13 +1292,17 @@ def fused_wide_pass(what: str, step, big) -> dict:
     out = step.fused(big)
     shapes = [[a.shape for _, a in o] for o in out["features"]]
     lmax = [int(m.max()) for m in out["labels"]]
-    if (step.fused.state != {"cap": 256, "u8": True}
-            or shapes != [[(n, 1, 256) for n in rows]] * 2 or not 64 < max(lmax) <= 255):
-        raise AssertionError(f"1080x1080 wide pass ({what}): state {step.fused.state}, shapes "
-                             f"{shapes}, objects {lmax}")
+    # the sticky rule: wider than the cap of 64 -> cap 256; a label above 255
+    # -> uint16 from then on (the 8 fields before carry at most 64)
+    want = {"cap": 256, "u8": max(lmax) <= 255}
+    if (step.fused.state != want or shapes != [[(n, 1, 256) for n in rows]] * 2
+            or not 64 < max(lmax) <= 256):
+        raise AssertionError(f"1080x1080 wide pass ({what}): state {step.fused.state} (want "
+                             f"{want}), shapes {shapes}, objects {lmax}")
     ms = host_ms(lambda: step.fused(big), reps=3)
     log(f"[fused] {what}, 1080x1080 field: objects {lmax}, state {step.fused.state} (wide pass, "
-        f"uint8 kept), first call {t_big * 1e3:.1f} ms, steady {ms:.1f} ms, peak memory {gb:.3f} GB")
+        f"{'uint8 kept' if want['u8'] else 'uint16 readback'}), first call {t_big * 1e3:.1f} ms, "
+        f"steady {ms:.1f} ms, peak memory {gb:.3f} GB")
     return {"field_1080_ms": ms, "field_1080_peak_gb": gb}
 
 
@@ -1391,6 +1422,288 @@ def segment_sum_row(rng, dev, launches: int) -> dict:
     return r
 
 
+RUNNER_SIZE, RUNNER_TPS, RUNNER_POS, RUNNER_CHUNK = 1080, 7, 2, 3
+TRACKER_ROW = "binned_sum_cols_batched (stitch_pair intersection count)"
+MAIN_KERNELS = ("successor_prop", "diffuse_heat", "binned_sum_cols_batched",
+                "binned_minmax_batched", "table_lookup_batched")
+
+
+def runner_pipeline(ntps: int) -> dict:
+    """Phase 5's pipeline: the default bank, a stitch tracker per object,
+    mono tile, compiled, the segment and tracker steps saved."""
+    from aliby_tpu_torch.engine.builders import build_pipeline_steps
+
+    pipeline = build_pipeline_steps(**DEFAULT_BANK)
+    objects = list(DEFAULT_BANK["channels_to_segment"])
+    for obj in objects:
+        pipeline["steps"][f"track_{obj}"] = {"kind": "stitch", "max_labels": 256,
+                                             "iou_threshold": 0.25}
+        pipeline["passed_data"][f"track_{obj}"] = [("masks", f"segment_{obj}")]
+    pipeline["save"] = [f"{k}_{o}" for k in ("segment", "track") for o in objects]
+    pipeline.update(ntps=ntps, compiled=True)
+    return pipeline
+
+
+def same_columns(a: dict, b: dict) -> bool:
+    """Two profiles' numpy columns: the same names in the same order, the
+    same values (NaN equal to NaN), the same missing entries."""
+    if list(a) != list(b):
+        return False
+    for k in a:
+        x, y = np.ma.getdata(a[k]), np.ma.getdata(b[k])
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                np.ma.getmaskarray(a[k]), np.ma.getmaskarray(b[k])):
+            return False
+        if not (np.array_equal(x, y, equal_nan=True) if x.dtype.kind == "f"
+                else np.array_equal(x, y)):
+            return False
+    return True
+
+
+def same_saves(a: str, b: str) -> int:
+    """Every .npz under ``a`` equals its twin under ``b``; returns the count."""
+    from pathlib import Path
+
+    files = sorted(p.relative_to(a) for p in Path(a).rglob("*.npz"))
+    if not files or files != sorted(p.relative_to(b) for p in Path(b).rglob("*.npz")):
+        raise AssertionError(f"saved files differ: {len(files)} under {a}")
+    for f in files:
+        with np.load(Path(a) / f) as x, np.load(Path(b) / f) as y:
+            if sorted(x.keys()) != sorted(y.keys()) or any(
+                    x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k]) for k in x.keys()):
+                raise AssertionError(f"saved {f} differs between runs")
+    return len(files)
+
+
+def same_tracker_states(a: dict, b: dict, tracker: str) -> bool:
+    sa, sb = a["data"][tracker], b["data"][tracker]
+    return len(sa) == len(sb) and all(
+        x["max_label"] == y["max_label"] and all(
+            np.array_equal(u, v) for u, v in zip(x["labels"], y["labels"]))
+        for x, y in zip(sa, sb))
+
+
+def runner_phase(dev, size=RUNNER_SIZE, ntps=RUNNER_TPS, n_pos=RUNNER_POS,
+                 chunk=RUNNER_CHUNK) -> dict:
+    """Phase 5: the runner on the card. ``n_pos`` positions x ``ntps``
+    timepoints of ``cellpainting_movie`` in a zarr directory store, found by
+    ``DatasetZarr``, through (a) the per-tp path, (b) the movie path with
+    ``chunk``-timepoint chunks (a ragged tail) and (c) the mesh path over
+    every position; returns the kernel row of the tracker's intersection
+    count."""
+    import tempfile
+
+    from aliby_tpu_torch.engine.compiled import FIELD_BYTES_PER_PIXEL, CompiledStep, try_compile
+    from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
+    from aliby_tpu_torch.io import zarrlite
+    from aliby_tpu_torch.io.dataset import DatasetZarr
+    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.parallel.pipeline_mesh import plan_calls, run_positions_mesh_states
+    from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
+    from aliby_tpu_torch.pipe import init_step
+    from aliby_tpu_torch.test_data import cellpainting_movie
+    from aliby_tpu_torch.track import trackers
+
+    wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
+                "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+                "binned_minmax_batched": segsum.binned_minmax_batched,
+                "table_lookup_batched": segsum.table_lookup_batched}
+    t0 = time.perf_counter()
+    movie = cellpainting_movie(n_pos, ntps, size, seed=13)
+    tmp = tempfile.TemporaryDirectory(prefix="aliby_runner_")
+    store = os.path.join(tmp.name, "plate.zarr")
+    for p in range(n_pos):
+        zarrlite.write_array(os.path.join(store, f"pos{p}"), movie[p],
+                             chunks=(1, 1, 1, size, size), compressor="zlib")
+    positions = DatasetZarr(store).get_position_ids()
+    log(f"[runner] {n_pos} positions x {ntps} tps x 5 channels x 1 z x {size}^2 uint16 written "
+        f"to a zlib zarr store in {time.perf_counter() - t0:.1f} s; positions "
+        f"{[p['key'] for p in positions]}")
+    base = runner_pipeline(ntps)
+    trackers_ = [n for n in base["steps"] if n.startswith("track")]
+
+    # the tracking of a chunk never waits on the host: the runner's own
+    # track_chunk calls run under the sync debug mode "error"; the sum
+    # kernel's launches inside each call (the intersection counts: nothing
+    # else in tracking sums) are counted per chunk while "launches" is a list
+    guarded = {"calls": 0, "launches": None}
+    track_chunk = CompiledStep.track_chunk
+    sums = segsum.binned_sum_cols_batched
+
+    def no_sync_track_chunk(*a, **kw):
+        guarded["calls"] += 1
+        before = sums.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return track_chunk(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            if guarded["launches"] is not None:
+                guarded["launches"].append(sums.launches - before)
+
+    # the trackers' intersection counts (stitch_pair's, 257^2 bins)
+    counts = Recorder(trackers, "binned_sum_cols_batched", lambda v, b, n: n == 257 * 257)
+
+    def run(what, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        t = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"runner {what}: kernels {missing} not launched ({launches})")
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[runner] {what}: {n_pos * ntps} field-tps in {t:.2f} s = "
+            f"{n_pos * ntps / t:.3f} field-tps/s ({t / (n_pos * ntps) * 1e3:.1f} ms a field-tp), "
+            f"peak device memory {gb:.3f} GB; launches {launches}")
+        return out, {"s": t, "field_tps_per_s": n_pos * ntps / t, "peak_gb": gb,
+                     "launches": launches}
+
+    def per_position(movie_mode, tag):
+        states = []
+        for pos in positions:
+            pipe = stamp_image_kwargs(base, pos, capture_order="TCZYX")
+            pipe["movie"] = movie_mode
+            if movie_mode:
+                pipe["movie_chunk"] = chunk
+            states.append((pipe, run_pipeline_return_state(
+                pipe, os.path.join(tmp.name, tag, pos["key"]), init_step, device=dev)))
+        return states
+
+    stats = {}
+    (a_states, stats["per_tp"]) = run("(a) per-tp path", lambda: per_position(False, "a"))
+    lmax = max(int(np.max(m)) for _, st in a_states for seg in ("segment_nuclei", "segment_cell")
+               for m in st["data"][seg])
+    state, want = try_compile(base, device=dev).fused.state, {"cap": 256, "u8": lmax <= 255}
+    if not 64 < lmax or state != want:
+        raise AssertionError(f"the runner's fused step: state {state}, want {want} (largest "
+                             f"label {lmax}): the sticky wide pass")
+    log(f"[runner] the fused step's sticky wide pass: largest label {lmax}, state {state}")
+    CompiledStep.track_chunk = no_sync_track_chunk
+    try:
+        (b_states, stats["movie"]) = run(f"(b) movie path, chunk {chunk}",
+                                         lambda: per_position(True, "b"))
+        os.environ["ALIBY_MESH_TIMING"] = "1"
+        guarded["launches"] = []
+        with counts:
+            (mesh, stats["mesh"]) = run(f"(c) mesh path, {n_pos} positions, chunk {chunk}",
+                                        lambda: run_positions_mesh_states(
+                                            base, positions, os.path.join(tmp.name, "c"),
+                                            capture_order="TCZYX", device=dev, chunk=chunk))
+    finally:
+        CompiledStep.track_chunk = track_chunk
+        os.environ.pop("ALIBY_MESH_TIMING", None)
+    count_launches, guarded["launches"] = guarded["launches"], None
+    if len(count_launches) != -(-ntps // chunk) or min(count_launches) <= 0:
+        raise AssertionError(f"the mesh's chunks launched the intersection count "
+                             f"{count_launches} times")
+    if guarded["calls"] < 2 * -(-ntps // chunk):
+        raise AssertionError(f"track_chunk ran {guarded['calls']} times under the sync guard")
+    log(f"[runner] chunk tracking: {guarded['calls']} track_chunk calls (movie and mesh) under "
+        f"torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+    # a plate that does not fit one call runs in groups of positions
+    step = try_compile(base, device=dev)
+    fit = step.max_fields(size * size)
+    plate = 24
+    groups, tps_a_call = plan_calls(plate, 1, ntps, None, fit, step.movie_capable())
+    need = fit * FIELD_BYTES_PER_PIXEL * size * size * len(step.seg_names)
+    if need > torch.cuda.get_device_properties(dev).total_memory or groups >= plate:
+        raise AssertionError(f"{fit} fields of {size}^2 a call: {plate} positions run in "
+                             f"groups of {groups}")
+    log(f"[runner] the card holds {fit} fields of {size}^2 a fused call (free memory now); a "
+        f"plate of {plate} positions x {ntps} tps runs in groups of {groups} positions, "
+        f"{tps_a_call} tp a call")
+    entries, timing = mesh
+    log("[runner] ALIBY_MESH_TIMING split (the mesh's dispatch thread, blocking; finalize not "
+        "run: no parquet on the card): " + " ".join(f"{k}={v:.3f}s" for k, v in timing.items()))
+
+    # (a) == (b) == (c): profiles, tracker states, saves
+    n_cols = n_saves = 0
+    for i, pos in enumerate(positions):
+        key = pos["key"]
+        pa_, sa = a_states[i]
+        cols = profile_columns(sa, pa_)
+        for what, (pipe, st) in (("movie", b_states[i]),
+                                 ("mesh", (entries[i]["pipeline"], entries[i]["state"]))):
+            if not same_columns(profile_columns(st, pipe), cols):
+                raise AssertionError(f"{key}: profile columns of the {what} path != per-tp")
+            for tr in trackers_:
+                if not same_tracker_states(st, sa, tr):
+                    raise AssertionError(f"{key}: {tr} states of the {what} path != per-tp")
+        n_saves += same_saves(os.path.join(tmp.name, "a", key), os.path.join(tmp.name, "b", key))
+        n_saves += same_saves(os.path.join(tmp.name, "a", key),
+                              os.path.join(tmp.name, "c", "steps", key))
+        n_cols = len(cols)
+        if not len(cols.get("metadata_tile", ())):
+            raise AssertionError(f"{key}: no profile rows")
+    # the card's tracks against the CPU's stitch_movie on the card's own labels
+    for i, pos in enumerate(positions):
+        pipe, st = a_states[i]
+        for tr in trackers_:
+            seg = pipe["passed_data"][tr][0][1]
+            labels = np.stack([np.stack(m) for m in st["data"][seg]]).astype(np.int32)
+            F = labels.shape[1]
+            kw = {k: pipe["steps"][tr][k] for k in ("max_labels", "iou_threshold")}
+            g, m = trackers.stitch_movie(torch.from_numpy(labels),
+                                         torch.zeros(labels.shape[1:], dtype=torch.int32),
+                                         torch.zeros(F, dtype=torch.int32), False, **kw)
+            for t, state in enumerate(st["data"][tr]):
+                if state["max_label"] != m[t].tolist() or not all(
+                        np.array_equal(state["labels"][f], g[t, f].numpy()) for f in range(F)):
+                    raise AssertionError(f"{pos['key']} {tr} tp {t}: card tracks != CPU "
+                                         f"stitch_movie")
+                first = int(labels[0].max())
+                if min(state["max_label"]) < first:
+                    raise AssertionError(f"{pos['key']} {tr} tp {t}: largest global label "
+                                         f"{state['max_label']} < frame 0's {first} objects")
+            log(f"[runner] {pos['key']} {tr}: frame-0 objects {int(labels[0].max())}, largest "
+                f"global label after each tp {m[:, 0].tolist()}; card == CPU stitch_movie")
+    log(f"[runner] per-tp == movie == mesh: {n_cols} profile columns per position (NaN equal), "
+        f"tracker states and {n_saves} saved .npz identical; card tracks == CPU stitch_movie on "
+        f"the card's labels")
+
+    # the device's idle share over a short window of the per-tp and mesh paths
+    short = runner_pipeline(chunk)
+    pipe0 = stamp_image_kwargs(short, positions[0], capture_order="TCZYX")
+    pipe0["movie"] = False
+    idle = {
+        "per_tp": device_share(lambda: run_pipeline_return_state(
+            pipe0, os.path.join(tmp.name, "p"), init_step, device=dev),
+            f"the per-tp path, 1 position x {chunk} tps"),
+        "mesh": device_share(lambda: run_positions_mesh_states(
+            short, positions, os.path.join(tmp.name, "q"), capture_order="TCZYX", device=dev,
+            chunk=chunk), f"the mesh path, one chunk of {n_pos} positions x {chunk} tps"),
+    }
+
+    # one chunk's tracking and one stitch_pair batch, timed on the mesh's inputs
+    ones, bins, n_bins = counts.args
+    B = bins.shape[0]
+    labels_dev = torch.from_numpy(np.stack(
+        [np.stack([np.stack(entries[p]["state"]["data"]["segment_nuclei"][t])[0]
+                   for p in range(n_pos)]) for t in range(chunk)]).astype(np.int32)).to(dev)
+    zeros = torch.zeros(labels_dev.shape[1:], dtype=torch.int32, device=dev)
+    zmax = torch.zeros(labels_dev.shape[1], dtype=torch.int32, device=dev)
+    movie_ms = cuda_ms(lambda: trackers.stitch_movie(labels_dev, zeros, zmax, True), reps=7)
+    pair_ms = cuda_ms(lambda: trackers.stitch_pair(labels_dev[0], labels_dev[1], zmax), reps=7)
+    log(f"[runner] one stitch_movie chunk ({chunk} tps x {labels_dev.shape[1]} fields of "
+        f"{size}^2, {chunk} intersection counts): {movie_ms:.3f} ms; one stitch_pair batch "
+        f"({labels_dev.shape[1]} fields): {pair_ms:.3f} ms (CUDA events, median of 7)")
+    log(f"[report] the trackers' intersection count (one stitch_pair's, {B} fields of {size}^2 "
+        f"-> {n_bins} bins; launches counted in the mesh path's track_chunk calls: "
+        f"{count_launches} in its {len(count_launches)} chunks, {sum(count_launches)} in all):")
+    row = binned_sum_row(ones, bins, n_bins, sum(count_launches), name=TRACKER_ROW)
+    row.update(launches_per_chunk=count_launches, runner=stats, stitch_movie_chunk_ms=movie_ms,
+               stitch_pair_ms=pair_ms, mesh_timing_s=timing, runner_device_share=idle)
+    tmp.cleanup()
+    return row
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1412,6 +1725,14 @@ def main() -> int:
         "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
     }
 
+    phase_t = {"start": time.perf_counter()}
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"[time] phase {name}: {now - phase_t.pop('last', phase_t['start']):.1f} s "
+            f"({now - phase_t['start']:.1f} s since the start)")
+        phase_t["last"] = now
+
     # ---------------------------------------------------------------- 1 build
     t0 = time.perf_counter()
     paths = _build.build()
@@ -1421,8 +1742,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    phase_done("1 (build)")
+
     # -------------------------------------------------------------- 2 kernels
     kernel_checks(np.random.default_rng(0), dev)
+    phase_done("2 (kernels)")
 
     # ------------------------------------------------------- 3 slice 1 (segmentation)
     pixels = np.concatenate(cellpainting_fields(8, 256, seed=7))  # (8, 5, 1, 256, 256)
@@ -1541,6 +1865,8 @@ def main() -> int:
     for what in FUSED_PATHS:
         fused_gpu_vs_cpu(what, pixels)
 
+    phase_done("3 (slices 1-3)")
+
     # --------------------------------------------------------------- 4 report
     log("[report] slice 1 (segmentation) kernels on its own inputs:")
     qc = measure_kernels({n: r.args for n, r in zip(SLICE1_KERNELS, recorders)}, launches)
@@ -1573,6 +1899,13 @@ def main() -> int:
     if slower:
         raise AssertionError(f"main-path sums slower than index_add_ in this call at {slower}")
     sum_breakdown(fused_rec["costes histogram"], wide.args, SEGMENT_SUM_SHAPE, dev)
+    phase_done("4 (report)")
+
+    # --------------------------------------------------------------- 5 runner
+    rows[TRACKER_ROW] = runner_phase(dev)
+    if rows[TRACKER_ROW]["ms"] > rows[TRACKER_ROW]["library_ms"]:
+        log("[report] the trackers' intersection count is slower than index_add_ in this call")
+    phase_done("5 (runner)")
 
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},

@@ -284,9 +284,11 @@ def test_sticky_width_and_uint8_match_jax():
 
 
 def test_try_compile_takes_no_runner_arguments():
-    """The reference's positional ``tiler`` and ``init_step_fn`` feed its
-    runner, which the port does not have: passing them is an error, not
-    silently ignored."""
+    """The reference's positional ``tiler`` and ``init_step_fn`` (the
+    runner's call) are accepted and unused: the fused step needs neither,
+    and the cache key stays (pipeline signature, device)."""
     pipeline = builders.build_pipeline_steps(**EXAMPLE01, channels_to_extract=[0])
+    step = compiled.try_compile(pipeline, device="cpu")
+    assert compiled.try_compile(pipeline, object(), lambda *a, **k: None, device="cpu") is step
     with pytest.raises(TypeError):
-        compiled.try_compile(pipeline, None, None)
+        compiled.try_compile(pipeline, None, None, "cpu")  # device is keyword-only

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``aliby_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``flax`` or any module of ``aliby_tpu``;
-and none imports ``pyarrow`` when it is imported (the GPU hosts of the port
-need not have it: only ``FusedTreeResult.to_table`` imports it, inside)."""
+and none imports ``pyarrow``, ``yaml``, ``PIL`` or ``imageio`` when it is
+imported (the GPU hosts of the port have none of them: the functions that
+write parquet, read or write yaml, or decode TIFFs import them inside)."""
 
 import ast
 from pathlib import Path
@@ -54,4 +55,18 @@ def test_no_module_level_pyarrow(path):
                  else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
         for name in names:
             assert name.split(".")[0] != "pyarrow", (
+                f"{path.relative_to(ROOT)}:{node.lineno} imports {name} at import time")
+
+
+HOST_ONLY = ("pyarrow", "yaml", "PIL", "imageio")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_yaml_pil_or_imageio(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in _import_time_nodes(tree.body):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            assert name.split(".")[0] not in HOST_ONLY, (
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name} at import time")

@@ -604,3 +604,69 @@ def test_zero_pixels_on_the_card(dev, B, K, n_bins):
     assert torch.equal(mn, pmn) and torch.equal(mx, pmx) and mn.shape == (B, n_bins, K)
     assert got.shape == segsum.table_lookup_batched_plain(table, bins).shape == (B, 0, K)
     assert sums.is_cuda and mn.is_cuda and got.is_cuda
+
+
+def _movie_labels(T=4, F=3, size=256, seed=2):
+    """(T, F, Y, X) int32 label maps of drifting, appearing and vanishing cells."""
+    from aliby_tpu_torch.test_data import cellpainting_movie
+
+    movie = cellpainting_movie(F, T, size, seed=seed).astype(np.float32)
+    labels = np.zeros((T, F, size, size), np.int32)
+    for f in range(F):
+        for t in range(T):
+            fg = movie[f, t, 3, 0] > 0.3 * 4096
+            # cut the foreground into 16-px blocks: many objects, some touching
+            yy, xx = np.mgrid[0:size, 0:size]
+            labels[t, f] = np.where(fg, 1 + (yy // 16) * (size // 16) + xx // 16, 0) % 250
+    return labels
+
+
+def test_stitch_movie_on_the_card_is_the_cpu_bits(dev):
+    from aliby_tpu_torch.track.trackers import stitch_movie
+
+    labels = _movie_labels()
+    F = labels.shape[1]
+    init = labels[0] * 3 + 1000 * (labels[0] > 0)  # carried globals far above max_labels
+    init_max = init.reshape(F, -1).max(axis=1).astype(np.int32)
+    for has in (False, True, torch.tensor([True, False, True])):
+        args = (torch.from_numpy(labels[1:]), torch.from_numpy(init.astype(np.int32)),
+                torch.from_numpy(init_max), has)
+        want = stitch_movie(*args)
+        got = stitch_movie(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_chunk_tracking_makes_no_host_sync(dev):
+    from aliby_tpu_torch.track.trackers import stitch_movie
+
+    labels = torch.from_numpy(_movie_labels()).to(dev)
+    zeros = torch.zeros_like(labels[0])
+    zmax = torch.zeros(labels.shape[1], dtype=torch.int32, device=dev)
+    before = segsum.binned_sum_cols_batched.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g, m = stitch_movie(labels, zeros, zmax, False)
+        g, m = stitch_movie(labels, g[-1], m[-1], True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # one intersection count a frame, every tile batched; the first frame of
+    # each call also counts against the carry
+    assert segsum.binned_sum_cols_batched.launches == before + 2 * labels.shape[0]
+    assert int(m.min()) > 0
+
+
+def test_intersection_count_against_plain(dev):
+    """The trackers' intersection count at the main path's shape: 66,049
+    bins, one column of ones; exact counts, equal to plain and to the
+    kernel's order on the CPU."""
+    rng = np.random.default_rng(5)
+    prev = rng.integers(0, 257, (2, 540, 540)).astype(np.int32)
+    cur = rng.integers(0, 257, (2, 540, 540)).astype(np.int32)
+    bins = torch.from_numpy((prev * 257 + cur).reshape(2, -1)).to(dev)
+    ones = torch.ones(bins.shape + (1,), device=dev)
+    got = segsum.binned_sum_cols_batched(ones, bins, 257 * 257)
+    assert torch.equal(got, segsum.binned_sum_cols_batched_plain(ones, bins, 257 * 257))
+    assert torch.equal(got.cpu(), segsum.binned_sum_cols_batched_chunked(
+        ones.cpu(), bins.cpu(), 257 * 257))
+    assert float(got.sum()) == 2 * 540 * 540

@@ -118,7 +118,8 @@ def test_dispatch_kinds_and_devices():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.dispatch_segmenter("nahual_cellpose")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.dispatch_segmenter("cellpose", three_d=True, device="cpu")
+        S.dispatch_segmenter("baby")
+    assert S.dispatch_segmenter("cellpose", three_d=True, device="cpu").three_d
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.CellposeTorch(pretrained_path="model_torch.pth", device="cpu")
     with pytest.raises(ValueError):
