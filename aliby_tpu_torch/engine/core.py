@@ -31,7 +31,11 @@ from typing import Callable
 import numpy as np
 
 from aliby_tpu_torch.device import resolve_device
-from aliby_tpu_torch.extract.extract import extraction_columns
+from aliby_tpu_torch.extract.extract import (
+    OverlapTreeResult,
+    extraction_columns,
+    extraction_columns_overlap,
+)
 from aliby_tpu_torch.io.write import dispatch_write_fn, write_parquet
 from aliby_tpu_torch.utils.timer import StepTimer
 
@@ -39,7 +43,6 @@ logger = logging.getLogger("aliby_tpu_torch")
 
 _NET_ITEM = ("the remote clients and the embedder (net/, models/embedder.py: "
              "ROADMAP queue 1, item 8)")
-_OVERLAP_ITEM = "the BABY path's overlapping masks (ROADMAP queue 1, item 5)"
 METADATA_KEYS = [f"metadata_{k}" for k in ("tp", "tile", "object", "label")]
 
 
@@ -386,11 +389,12 @@ def _format_profile_table(step_name: str, tp: int, output):
     """One (feature step, tp) output -> its decorated wide columns, or
     ``False`` when the tp produced no rows (None stays the cache-miss
     sentinel)."""
-    if isinstance(output, tuple) and len(output) == 3:
-        raise NotImplementedError(f"profiles of overlapping masks: {_OVERLAP_ITEM}")
-    cols = extraction_columns(output)
-    renames = {"tile": "metadata_tile", "label": "metadata_label"}
-    cols = {renames.get(k, k): v for k, v in cols.items()}
+    if isinstance(output, OverlapTreeResult):
+        cols = extraction_columns_overlap(output)  # metadata columns named already
+    else:
+        cols = extraction_columns(output)
+        renames = {"tile": "metadata_tile", "label": "metadata_label"}
+        cols = {renames.get(k, k): v for k, v in cols.items()}
     n = len(cols["metadata_tile"])
     if not n:
         return False
@@ -553,8 +557,9 @@ def get_step_output(
 # ---------------------------------------------------------------------------
 
 
-def _init_tile(step_name: str, parameters: dict):
-    """Build the image (dispatch_image), then the tiler (dispatch_tiler)."""
+def _init_tile(step_name: str, parameters: dict, device=None):
+    """Build the image (dispatch_image), then the tiler (dispatch_tiler);
+    trap detection runs on ``device``."""
     from aliby_tpu_torch.io.image import dispatch_image
     from aliby_tpu_torch.tile.tiler import dispatch_tiler
 
@@ -563,17 +568,18 @@ def _init_tile(step_name: str, parameters: dict):
     source = image_kwargs.pop("source")
     image = dispatch_image(source)(source, **image_kwargs)
     kind = params.pop("kind", "crop" if step_name.startswith("tile_crop") else "trap")
-    return dispatch_tiler(kind, **params)(image)
+    return dispatch_tiler(kind, device=device, **params)(image)
 
 
 def _init_extract(step_name: str, parameters: dict, overlap: bool = False, device=None):
-    from aliby_tpu_torch.extract.extract import process_tree_masks
+    """The step's tree over one timepoint's masks: 2-D label maps, or with
+    ``overlap`` (the BABY flavour) layered, possibly overlapping ones."""
+    from aliby_tpu_torch.extract.extract import process_tree_masks, process_tree_masks_overlap
 
-    if overlap:
-        raise NotImplementedError(f"step {step_name!r}: {_OVERLAP_ITEM}")
     kwargs = dict(parameters.get("kwargs", {}))
     cp_kwargs = kwargs.pop("cp_measure_kwargs", None)
-    return functools.partial(process_tree_masks, tree=parameters["tree"],
+    fn = process_tree_masks_overlap if overlap else process_tree_masks
+    return functools.partial(fn, tree=parameters["tree"],
                              cp_measure_kwargs=cp_kwargs, device=device, **kwargs)
 
 

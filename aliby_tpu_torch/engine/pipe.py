@@ -52,7 +52,7 @@ def init_step(step_name: str, parameters: dict, other_steps: dict | None = None,
     if other_steps is None:
         other_steps = {}
     if step_name.startswith("tile"):
-        return _init_tile(step_name, parameters)
+        return _init_tile(step_name, parameters, device=device)
     if step_name.startswith("segment"):
         return _init_segment(step_name, parameters, other_steps, device=device)
     if step_name.startswith("track_global"):

@@ -12,11 +12,16 @@ step, one timepoint) and :func:`extraction_columns` /
 :func:`format_extraction` the wide table, as numpy columns or as a pyarrow
 table (pyarrow imported inside).
 
-Every cp_measure family is ported (``sizeshape``, ``intensity``, ``feret``
-and the families of ``extract/texture.py``) and the colocalisation pair
-(``corr``). The yeast/trap entries (cellfuns scalars, localisation, trap
-background, channel combinations) raise ``NotImplementedError`` naming
-their ROADMAP item, as do the BABY path's ``_overlap`` forms.
+Every plan entry is ported: the cp_measure families (``sizeshape``,
+``intensity``, ``feret`` and the families of ``extract/texture.py``), the
+colocalisation pair (``corr``), and the yeast/trap entries: the cellfuns
+scalars (``mask_scalar``, ``pixel_scalar``), ``localisation``, the tile
+background (``trap``) and channel combinations (``comb_scalar``).
+:func:`process_tree_masks_overlap` is the BABY path's form over layered,
+possibly overlapping masks: each (tile, layer) is relabelled into a
+virtual tile, the inverse label maps ride along, and
+:func:`extraction_columns_overlap` / :func:`format_extraction_overlap`
+restore the original labels.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from itertools import product
 import numpy as np
 import torch
 
-from aliby_tpu_torch.extract import features, texture
+from aliby_tpu_torch.extract import cellfuns, features, localisation, texture
 
 # ---------------------------------------------------------------------------
 # Tree flattening (reference extract.py:33-74 semantics)
@@ -65,14 +70,9 @@ _CP_FAMILY_KIND = {
 }
 
 # the scalar metric names of extract/cellfuns.py (the yeast/trap path)
-MASK_METRICS = ("area", "eccentricity", "volume", "conical_volume",
-                "spherical_volume", "centroid_x", "centroid_y")
-PIXEL_METRICS = ("mean", "total", "total_squared", "median", "max2p5pc",
-                 "max5px_median", "std", "moment_of_inertia")
-TRAP_METRICS = ("imBackground", "background_max5")
-
-_CELLFUNS_ITEM = "extract/cellfuns.py and extract/localisation.py (ROADMAP queue 1, item 5)"
-_OVERLAP_ITEM = "the BABY path's overlapping masks (ROADMAP queue 1, item 5)"
+MASK_METRICS = cellfuns.MASK_METRICS
+PIXEL_METRICS = cellfuns.PIXEL_METRICS
+TRAP_METRICS = cellfuns.TRAP_METRICS
 
 
 def _cp_family_fn(name: str):
@@ -111,8 +111,21 @@ def _entry_values(entry, labels, imgs, max_labels) -> dict:
         _, metric, s0, s1 = entry
         return features.CORRELATION_FEATURES[metric](labels, _img2d(imgs, s0),
                                                      _img2d(imgs, s1), max_labels)
-    if kind in ("mask_scalar", "pixel_scalar", "localisation", "trap", "comb_scalar"):
-        raise NotImplementedError(f"plan entry {kind!r}: {_CELLFUNS_ITEM}")
+    if kind == "mask_scalar":
+        return cellfuns.mask_metrics(labels, max_labels)
+    if kind == "pixel_scalar":
+        return cellfuns.pixel_metrics(labels, _img2d(imgs, entry[1]), max_labels)
+    if kind == "localisation":
+        _, metric, slot = entry
+        return {metric: localisation.compute(metric, labels, imgs[slot], max_labels)}
+    if kind == "trap":
+        raw = cellfuns.background_metrics(labels, _img2d(imgs, entry[1]))
+        return {k: v.unsqueeze(1).expand(v.shape[0], max_labels) for k, v in raw.items()}
+    if kind == "comb_scalar":
+        _, op, s0, s1 = entry
+        a, b = _img2d(imgs, s0), _img2d(imgs, s1)
+        combined = torch.nan_to_num(a / b if op == "div" else a + b)
+        return cellfuns.pixel_metrics(labels, combined, max_labels)
     raise AssertionError(kind)
 
 
@@ -354,6 +367,41 @@ def _max_labels_bucket(n: int) -> int:
     return b
 
 
+def _slot_images(pixels: np.ndarray, slot_of: dict, device, tiles=None) -> list:
+    """Each image slot (channel, z-reduction) of the (F, C, Z, Y, X) tile
+    stack, z-reduced on the host, on ``device``; ``tiles`` picks (and
+    repeats) tiles on the device."""
+    imgs = [None] * len(slot_of)
+    for (ch, red_z), si in slot_of.items():
+        stack = np.stack([_reduce_z(np.asarray(pixels[f, ch], np.float32), red_z)
+                          for f in range(pixels.shape[0])])
+        im = torch.from_numpy(np.ascontiguousarray(stack)).to(device)
+        imgs[si] = im if tiles is None else im.index_select(0, tiles)
+    return imgs
+
+
+def _tree_result(tree: dict, labels: torch.Tensor, pixels: np.ndarray, cp_measure_kwargs,
+                 device, tiles=None):
+    """The tree over (V, Y, X) device labels -> a :class:`FusedTreeResult`,
+    or ``None`` when there is no object or no instruction."""
+    instructions = kv(flatten(tree))
+    n_per_tile = labels.reshape(labels.shape[0], -1).amax(dim=1).tolist() \
+        if labels.shape[0] else []
+    if not any(n_per_tile) or not instructions:
+        return None
+    max_labels = _max_labels_bucket(max(n_per_tile + [1]))
+    entries, slot_of, inst_lookup = compile_plan(instructions, cp_measure_kwargs or {})
+    imgs = _slot_images(pixels, slot_of, device, tiles)
+    with torch.no_grad():
+        names, arr = tree_collect(entries, labels, imgs, max_labels)
+    return FusedTreeResult(instructions, inst_lookup, names, arr.cpu().numpy(), n_per_tile)
+
+
+def _tile_stack(pixels) -> np.ndarray:
+    pixels = np.asarray(pixels)
+    return pixels[0] if pixels.ndim == 6 else pixels  # a leading T of size 1
+
+
 def process_tree_masks(tree: dict, masks, pixels, ncores=None,
                        cp_measure_kwargs: dict | None = None, progress_bar: bool = False,
                        device=None, **kwargs):
@@ -373,28 +421,107 @@ def process_tree_masks(tree: dict, masks, pixels, ncores=None,
         labels = masks.astype(np.int32)
     else:
         labels = np.stack([np.asarray(m) for m in masks]).astype(np.int32)
-    pixels = np.asarray(pixels)
-    if pixels.ndim == 6:  # leading T of size 1
-        pixels = pixels[0]
-    F = labels.shape[0]
-    instructions = kv(flatten(tree))
-    n_per_tile = [int(labels[f].max()) for f in range(F)]
-    if not any(n_per_tile) or not instructions:
-        return (), []
-    max_labels = _max_labels_bucket(max(n_per_tile + [1]))
-    entries, slot_of, inst_lookup = compile_plan(instructions, cp_measure_kwargs or {})
-    imgs = [None] * len(slot_of)
-    for (ch, red_z), si in slot_of.items():
-        stack = np.stack([_reduce_z(np.asarray(pixels[f, ch], np.float32), red_z)
-                          for f in range(F)])
-        imgs[si] = torch.from_numpy(np.ascontiguousarray(stack)).to(device)
-    with torch.no_grad():
-        names, arr = tree_collect(entries, torch.from_numpy(labels).to(device), imgs, max_labels)
-    return FusedTreeResult(instructions, inst_lookup, names, arr.cpu().numpy(), n_per_tile)
+    out = _tree_result(tree, torch.from_numpy(labels).to(device), _tile_stack(pixels),
+                       cp_measure_kwargs, device)
+    return ((), []) if out is None else out
 
 
-def process_tree_masks_overlap(*args, **kwargs):
-    raise NotImplementedError(f"process_tree_masks_overlap: {_OVERLAP_ITEM}")
+class OverlapTreeResult:
+    """The overlap path's ``(tileid_instructions, results,
+    inverse_mappings)`` triple, lazily: ``virtual`` holds the tree over the
+    virtual tiles, ``virtual_ids[v]`` the (tile, layer) of virtual tile v
+    and ``inverse_mappings[(tile, layer)][k]`` the original label of its
+    sequential label k. Instruction ids are ``((tile, layer, label),
+    instruction)``; :meth:`columns` gives the wide table's columns."""
+
+    def __init__(self, virtual, virtual_ids, inverse_mappings):
+        self.virtual = virtual  # FusedTreeResult or None
+        self.virtual_ids = list(virtual_ids)
+        self.inverse_mappings = inverse_mappings
+        self._rows = None
+
+    def _materialize(self):
+        if self._rows is None:
+            if self.virtual is None:
+                self._rows = ((), [], self.inverse_mappings)
+            else:
+                v_instr, results = self.virtual
+                ids = tuple(((*self.virtual_ids[v], label), inst) for (v, label), inst in v_instr)
+                self._rows = (ids, results, self.inverse_mappings)
+        return self._rows
+
+    def __len__(self):
+        return 3
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def columns(self) -> dict:
+        """``metadata_tile``, ``metadata_label`` (the original labels,
+        int64), then the metric columns (float64) sorted by name. A (tile,
+        label) that several layers hold takes each column from its last
+        layer, as the reference's row dict does."""
+        if self.virtual is None:
+            return {"metadata_tile": np.zeros(0, np.int64),
+                    "metadata_label": np.zeros(0, np.int64)}
+        cols = self.virtual.columns()
+        if not len(cols["tile"]):
+            return {"metadata_tile": np.zeros(0, np.int64),
+                    "metadata_label": np.zeros(0, np.int64)}
+        tiles = np.asarray([self.virtual_ids[v][0] for v in cols["tile"]], np.int64)
+        orig = np.asarray([int(self.inverse_mappings[self.virtual_ids[v]][lab])
+                           for v, lab in zip(cols["tile"], cols["label"])], np.int64)
+        row_of: dict = {}
+        for i, key in enumerate(zip(tiles.tolist(), orig.tolist())):
+            row_of[key] = i  # first position, last value
+        pick = np.asarray(list(row_of.values()), np.int64)
+        keys = np.asarray(list(row_of.keys()), np.int64).reshape(-1, 2)
+        out = {"metadata_tile": keys[:, 0], "metadata_label": keys[:, 1]}
+        for name, col in cols.items():
+            if name not in ("tile", "label"):
+                out[name] = col[pick]
+        return out
+
+
+def process_tree_masks_overlap(tree: dict, masks, pixels, ncores=None,
+                               cp_measure_kwargs: dict | None = None,
+                               progress_bar: bool = False, device=None, **kwargs):
+    """BABY-style extraction over stacked, possibly overlapping masks.
+
+    ``masks`` is a per-tile list of (n_layers, Y, X) label stacks (BABY's
+    layered output; a 2-D map is one layer). Each (tile, layer) is
+    relabelled sequentially (one batched call on ``device``) and is a
+    virtual tile of the same core as :func:`process_tree_masks`; the
+    inverse label maps ride along (reference ``extract.py:456-517``).
+    Returns an :class:`OverlapTreeResult`.
+    """
+    from aliby_tpu_torch.device import resolve_device
+    from aliby_tpu_torch.ops.labels import relabel_sequential_batched
+
+    del ncores, progress_bar
+    device = resolve_device(device)
+    pixels = _tile_stack(pixels)
+    layers, virtual_ids = [], []
+    for t, layered in enumerate(masks):
+        layered = np.asarray(layered)
+        if layered.ndim == 2:
+            layered = layered[None]
+        for s in range(layered.shape[0]):
+            layers.append(layered[s].astype(np.int32))
+            virtual_ids.append((t, s))
+    if not layers:
+        return OverlapTreeResult(None, [], {})
+    stack = torch.from_numpy(np.stack(layers)).to(device)
+    bucket = _max_labels_bucket(max(int(stack.max()), 1))
+    relab, fwd = relabel_sequential_batched(stack, bucket)
+    fwd = fwd.cpu().numpy()
+    inverse = {vid: fwd[v] for v, vid in enumerate(virtual_ids)}
+    tiles = torch.as_tensor([t for t, _ in virtual_ids], dtype=torch.int64, device=device)
+    virtual = _tree_result(tree, relab, pixels, cp_measure_kwargs, device, tiles)
+    return OverlapTreeResult(virtual, virtual_ids, inverse)
 
 
 # ---------------------------------------------------------------------------
@@ -451,5 +578,15 @@ def format_extraction(instructions_result):
     return pa.Table.from_pydict(cols)
 
 
-def format_extraction_overlap(instructions_result):
-    raise NotImplementedError(f"format_extraction_overlap: {_OVERLAP_ITEM}")
+def extraction_columns_overlap(result: OverlapTreeResult) -> dict:
+    """The overlap path's wide table as ordered numpy columns
+    (``metadata_tile``, ``metadata_label`` with the original labels, then
+    the metric columns sorted by name; reference ``extract.py:602-683``)."""
+    return result.columns()
+
+
+def format_extraction_overlap(result: OverlapTreeResult):
+    """The wide ``pyarrow.Table`` of :func:`extraction_columns_overlap`."""
+    import pyarrow as pa
+
+    return pa.Table.from_pydict(result.columns())

@@ -12,10 +12,8 @@ Constants divide as IEEE divisions on every device (``_div``), square roots
 are correctly rounded on every device (``ops.imageops._sqrt``), and integer
 powers multiply in the reference's square-and-multiply order (``_ipow``),
 so the CPU and the card compute the same bits as far as the reductions'
-summation order allows.
-
-Not ported yet (their caller, cellfuns, waits for ROADMAP queue 1 item
-5): ``topk_*`` and ``distance_to_boundary``.
+summation order allows. The top-k mean takes its running sum in the
+reference backend's order (``ops.imageops.cumsum_xla``).
 """
 
 from __future__ import annotations
@@ -26,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from aliby_tpu_torch.ops.imageops import _monotone_key, _sqrt
+from aliby_tpu_torch.ops.imageops import _monotone_key, _sqrt, cumsum_xla
 from aliby_tpu_torch.ops.segsum import (
     MAX_COLS,
     binned_minmax_batched,
@@ -268,6 +266,32 @@ def quantile_from_sorted(sorted_v, starts, cnt, q: float):
     v_lo = _take(sorted_v, starts + lo)
     v_hi = _take(sorted_v, starts + hi)
     out = v_lo * (1 - frac) + v_hi * frac
+    return torch.where(cnt > 0, out, torch.full((), float("nan"), device=out.device))
+
+
+def topk_mean_from_sorted(sorted_v, starts, cnt, frac: float):
+    """Mean of the top ``frac`` fraction (at least one pixel) of each
+    label's values (the reference's ``max2p5pc``: the top 2.5%), as a
+    difference of one running sum over each image's sorted values."""
+    csum = torch.cat([torch.zeros_like(sorted_v[:, :1]), cumsum_xla(sorted_v)], dim=1)
+    k = torch.ceil(cnt * frac).clamp_min(1.0)
+    k = torch.minimum(k, cnt).to(torch.int32)
+    end = starts + cnt.to(torch.int32)
+    top_sum = _take(csum, end) - _take(csum, end - k)
+    out = top_sum / k.clamp_min(1).to(torch.float32)
+    return torch.where(cnt > 0, out, torch.full((), float("nan"), device=out.device))
+
+
+def topk_median_from_sorted(sorted_v, starts, cnt, k: int):
+    """Median of each label's top ``k`` values."""
+    kk = torch.clamp_max(cnt, float(k))
+    end = starts + cnt.to(torch.int32)
+    pos = (kk - 1.0) / 2.0
+    lo = torch.floor(pos).to(torch.int32)
+    hi = torch.ceil(pos).to(torch.int32)
+    frac = pos - lo
+    base = end - kk.to(torch.int32)
+    out = _take(sorted_v, base + lo) * (1 - frac) + _take(sorted_v, base + hi) * frac
     return torch.where(cnt > 0, out, torch.full((), float("nan"), device=out.device))
 
 
@@ -559,3 +583,24 @@ def boundary_mask(labels: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
     for dy, dx in offs:
         diff = diff | (labels != _shifted(pad, dy, dx))
     return diff & (labels > 0)
+
+
+def distance_to_boundary(labels: torch.Tensor, max_iter: int = 64) -> torch.Tensor:
+    """Chessboard distance inside each object of (B, H, W) labels, by
+    ``max_iter`` same-label erosions: a pixel at distance d survives d of
+    them (scipy ``distance_transform_cdt(metric="chessboard") + 1`` on each
+    object alone: touching objects are each other's background)."""
+    fg = labels > 0
+    pad_l = torch.nn.functional.pad(labels, (1, 1, 1, 1), value=-1)
+    offs = ((-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1))
+    other = [_shifted(pad_l, dy, dx) != labels for dy, dx in offs]
+    alive = fg
+    dist = fg.to(torch.float32)
+    for _ in range(max_iter):
+        pad_a = torch.nn.functional.pad(alive, (1, 1, 1, 1))
+        keep = alive
+        for (dy, dx), o in zip(offs, other):
+            keep = keep & (_shifted(pad_a, dy, dx) | o)
+        dist = dist + keep.to(torch.float32)
+        alive = keep
+    return dist

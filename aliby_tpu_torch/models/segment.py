@@ -3,10 +3,16 @@
 ``dispatch_segmenter(kind, channel_to_segment, ...)`` returns
 ``segment(pixels) -> masks`` where ``pixels`` is ``(F, C, Z, Y, X)`` (a
 leading T of size 1 is dropped) and ``masks`` is a list of per-tile 2-D
-uint16 label maps. The ``cellpose`` kind is ported: percentile
-normalisation, the U-Net with the bundled weights, and mask
-reconstruction, on ``cuda`` unless ``device="cpu"`` is passed; with
-``three_d=True`` each z plane is segmented and the planes are stitched.
+uint16 label maps. Kinds, on ``cuda`` unless ``device="cpu"`` is passed:
+
+- ``cellpose``: percentile normalisation, the U-Net with the bundled
+  weights, and mask reconstruction; with ``three_d=True`` each z plane is
+  segmented and the planes are stitched;
+- ``threshold``: Gaussian blur, Otsu, EDT-peak seeds and nearest-seed
+  regions, connected components for seedless blobs, the size filter; all
+  tiles of a call as one batch;
+- ``baby``: :mod:`aliby_tpu_torch.models.baby` (layered masks, tracking and
+  lineage) on a base segmenter.
 """
 
 from __future__ import annotations
@@ -25,8 +31,19 @@ from aliby_tpu_torch.models.weights import (
     params_from_flax,
     read_flax_checkpoint,
 )
-from aliby_tpu_torch.ops.imageops import percentile_pair
-from aliby_tpu_torch.ops.labels import relabel_sequential
+from aliby_tpu_torch.ops.edt import edt_to_other_label, nearest_seed
+from aliby_tpu_torch.ops.imageops import (
+    gaussian_blur,
+    otsu_threshold,
+    peak_local_max,
+    percentile_pair,
+)
+from aliby_tpu_torch.ops.labels import (
+    connected_components,
+    relabel_sequential,
+    relabel_sequential_batched,
+    segment_sum,
+)
 from aliby_tpu_torch.track.trackers import stitch_sequence
 
 
@@ -43,6 +60,66 @@ def _drop_leading_time(pixels: np.ndarray) -> np.ndarray:
     if pixels.ndim == 6:
         pixels = pixels[0]
     return pixels
+
+
+# ---------------------------------------------------------------------------
+# threshold segmenter
+# ---------------------------------------------------------------------------
+
+
+def threshold_segment(imgs: torch.Tensor, min_distance: int = 8, max_labels: int = 256,
+                      min_size: int = 20, threshold_scale: float = 1.0) -> torch.Tensor:
+    """(B, H, W) images -> (B, H, W) int32 labels 1..n, each image as the
+    reference's ``_threshold_segment_2d``: blur (sigma 1.5), Otsu scaled by
+    ``threshold_scale``, EDT peaks at least ``min_distance`` apart as seeds,
+    each foreground pixel to its nearest seed, connected components for
+    blobs no seed reached, then objects below ``min_size`` pixels dropped."""
+    B, H, W = imgs.shape
+    dev = imgs.device
+    smoothed = gaussian_blur(imgs.to(torch.float32), 1.5)
+    scale = torch.tensor(float(threshold_scale), dtype=torch.float32, device=dev)
+    thr = otsu_threshold(smoothed) * scale
+    mask = smoothed > thr.reshape(B, 1, 1)
+    dist = edt_to_other_label(mask.to(torch.int32))
+    coords, valid = peak_local_max(dist, min_distance=min_distance, threshold=1.0,
+                                   max_peaks=max_labels)
+    flat_idx = (coords[..., 0].to(torch.int64) * W + coords[..., 1]).clamp(0, H * W - 1)
+    seed_map = torch.zeros(B, H * W, dtype=torch.bool, device=dev)
+    seed_map.scatter_(1, flat_idx, valid)
+    sy, sx = nearest_seed(seed_map.reshape(B, H, W))
+    seed_ids = torch.cumsum(seed_map, dim=1, dtype=torch.int32)  # 1..n at the seeds
+    at = (sy.clamp(0, H - 1).to(torch.int64) * W + sx.clamp(0, W - 1)).reshape(B, -1)
+    lbl = torch.gather(seed_ids, 1, at).reshape(B, H, W)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    labels = torch.where(mask & (sy > -(2 ** 20)), lbl, zero)
+    cc = connected_components(mask & (labels == 0))
+    top = labels.reshape(B, -1).amax(dim=1).reshape(B, 1, 1)
+    labels = torch.where(labels > 0, labels, torch.where(cc > 0, cc + top, zero))
+    labels, _ = relabel_sequential_batched(labels, max_labels)
+    areas = segment_sum(torch.ones(B, H * W, dtype=torch.float32, device=dev), labels,
+                        max_labels)
+    keep = torch.cat([torch.zeros(B, 1, dtype=torch.bool, device=dev), areas >= min_size], 1)
+    keep_px = torch.gather(keep, 1, labels.reshape(B, -1).clamp(0, max_labels).to(torch.int64))
+    labels = torch.where(keep_px.reshape(B, H, W), labels, zero)
+    return relabel_sequential_batched(labels, max_labels)[0]
+
+
+def _make_threshold_segmenter(channel_to_segment: int = 0, device=None, **kwargs):
+    seg_kwargs = {k: kwargs[k] for k in ("min_distance", "max_labels", "min_size",
+                                         "threshold_scale") if k in kwargs}
+    device = resolve_device(device)
+
+    def segment(pixels, **_ignored):
+        pixels = _drop_leading_time(np.asarray(pixels))
+        imgs = pixels[:, channel_to_segment]  # (F, Z, Y, X)
+        imgs = imgs.max(axis=1) if imgs.shape[1] > 1 else imgs[:, 0]
+        x = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(device)
+        with torch.no_grad():
+            labels = threshold_segment(x, **seg_kwargs).cpu().numpy()
+        return [_to_uint16(m) for m in labels]
+
+    segment.device = device
+    return segment
 
 
 def _normalize_percentile(x: torch.Tensor) -> torch.Tensor:
@@ -256,9 +333,6 @@ def segment_grouped(segmenters, pixels) -> list[list[np.ndarray]]:
 
 
 _NOT_PORTED = {
-    "threshold": "the threshold segmenter needs the rest of ops/labels and ops/imageops "
-                 "(ROADMAP queue 1, item 4)",
-    "baby": "models/baby.py (ROADMAP queue 1, item 5)",
     "spots": "models/spots.py (ROADMAP queue 1, item 8)",
     "spotiflow": "models/spots.py (ROADMAP queue 1, item 8)",
 }
@@ -267,6 +341,12 @@ _NOT_PORTED = {
 def dispatch_segmenter(kind: str = "cellpose", channel_to_segment: int = 0, **kwargs):
     if kind in ("cellpose", "cellpose_tpu"):
         return _make_cellpose_segmenter(channel_to_segment, **kwargs)
+    if kind == "threshold":
+        return _make_threshold_segmenter(channel_to_segment, **kwargs)
+    if kind == "baby":
+        from aliby_tpu_torch.models.baby import make_baby_segmenter
+
+        return make_baby_segmenter(channel_to_segment, **kwargs)
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"segmenter kind {kind!r}: {_NOT_PORTED[kind]}")
     if kind.startswith("nahual"):

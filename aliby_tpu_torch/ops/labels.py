@@ -1,10 +1,11 @@
 """Label-map utilities (counterpart of ``aliby_tpu/ops/labels.py``).
 
-Ported: :func:`relabel_dense` (segmentation), :func:`relabel_sequential`
-and its batched form (tracking), :func:`num_labels` and
-:func:`to_uint16_labels`. ``connected_components*``, ``label_onehot`` and
-``segment_sum`` come with the ``threshold`` segmenter (ROADMAP queue 1,
-item 4).
+Batched over a leading axis: :func:`connected_components` (the reference's
+fixed iterations, the same ids), :func:`relabel_dense` (segmentation),
+:func:`relabel_sequential` and its batched form (tracking),
+:func:`label_onehot`, :func:`segment_sum`, :func:`num_labels` and
+:func:`to_uint16_labels`. ``connected_components_hybrid`` has no caller on
+a ported path.
 """
 
 from __future__ import annotations
@@ -13,6 +14,69 @@ import numpy as np
 import torch
 
 _BIG = 2**30  # the reference's sentinel: labels lie below it
+
+
+def _neighbor_min(lbl: torch.Tensor, connectivity: int) -> torch.Tensor:
+    """Min over each pixel and its 4- or 8-neighbourhood of (B, H, W),
+    ``_BIG`` outside the image."""
+    B, H, W = lbl.shape
+    pad = torch.nn.functional.pad(lbl, (1, 1, 1, 1), value=_BIG)
+    offs = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+    if connectivity == 2:
+        offs += [(-1, -1), (-1, 1), (1, -1), (1, 1)]
+    out = lbl
+    for dy, dx in offs:
+        out = torch.minimum(out, pad[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W])
+    return out
+
+
+def _jump(flat: torch.Tensor, hw: int) -> torch.Tensor:
+    """One pointer jump: ``min(p, p[p])`` on the labelled pixels."""
+    nxt = torch.gather(flat, 1, flat.clamp(0, hw - 1).to(torch.int64))
+    return torch.where(flat < _BIG, torch.minimum(flat, nxt), flat.new_full((), _BIG))
+
+
+def connected_components(mask: torch.Tensor, connectivity: int = 1, n_iter: int = 24) -> torch.Tensor:
+    """Label the connected foreground of each (B, H, W) mask.
+
+    The reference's ``n_iter`` rounds exactly, converged or not: each takes
+    the neighbourhood min, hooks every pixel's best neighbour label into
+    its current root (a scatter-min), adopts the neighbour min and jumps
+    pointers twice. A finished component carries the flat index of its
+    smallest pixel + 1 (background 0); a component that ``n_iter`` rounds
+    do not finish keeps the reference's partial ids."""
+    B, H, W = mask.shape
+    hw = H * W
+    mask = mask.to(torch.bool)
+    iota = torch.arange(hw, dtype=torch.int32, device=mask.device).reshape(1, H, W)
+    big = torch.full((), _BIG, dtype=torch.int32, device=mask.device)
+    lbl = torch.where(mask, iota, big)
+    for _ in range(n_iter):
+        nflat = torch.where(mask, _neighbor_min(lbl, connectivity), big).reshape(B, hw)
+        flat = lbl.reshape(B, hw)
+        valid = flat < _BIG
+        roots = torch.where(valid, flat.clamp(0, hw - 1), hw - 1).to(torch.int64)
+        flat = flat.scatter_reduce(1, roots, torch.where(valid, nflat, big), "amin")
+        flat = torch.minimum(flat, nflat)
+        lbl = _jump(_jump(flat, hw), hw).reshape(B, H, W)
+    return torch.where(mask, lbl + 1, torch.zeros((), dtype=torch.int32, device=mask.device))
+
+
+def label_onehot(labels: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """(..., Y, X) labels -> (..., max_labels, Y, X) bool, label k at row
+    k - 1 (the reference's ``transform_2d_to_3d`` with a static pad)."""
+    ids = torch.arange(1, max_labels + 1, dtype=labels.dtype, device=labels.device)
+    return labels.unsqueeze(-3) == ids.reshape(-1, 1, 1)
+
+
+def segment_sum(values: torch.Tensor, labels: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """Per-label sums of each (B, ...) image -> (B, max_labels) f32, label k
+    at column k - 1, through the sum kernel's wrapper
+    (``extract.reductions.seg_sum``): exact for counts below 2^24."""
+    from aliby_tpu_torch.extract.reductions import seg_sum
+
+    B = labels.shape[0]
+    return seg_sum(values.reshape(B, -1), labels.reshape(B, -1), max_labels)
 
 
 def relabel_dense(labels: torch.Tensor, upper: int, max_labels: int) -> torch.Tensor:

@@ -58,8 +58,9 @@ def run_positions(base_pipeline: dict, positions: Sequence[dict], output_path: s
     ``run_fn`` is called with the reference's keywords and ``device``."""
     if run_fn is None:
         if flavor == "baby":
-            raise NotImplementedError("the baby flavour: ROADMAP queue 1, item 5")
-        from aliby_tpu_torch.pipe import run_pipeline_and_post as run_fn
+            from aliby_tpu_torch.pipe_baby import run_pipeline_and_post as run_fn
+        else:
+            from aliby_tpu_torch.pipe import run_pipeline_and_post as run_fn
     devices = [resolve_device(d) for d in devices] if devices is not None else visible_devices()
     output_path = Path(output_path)
     results: dict[str, tuple] = {}

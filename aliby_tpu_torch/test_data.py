@@ -1,6 +1,9 @@
-"""Synthetic fields, numpy only (copies of ``aliby_tpu/test_data.render_cells``
-and of the bench's five-channel Cell Painting field builder), so the port
-and ``chip_smoke.py`` can make inputs without JAX."""
+"""Synthetic fields, numpy only, so the port and ``chip_smoke.py`` can make
+inputs without JAX: copies of ``aliby_tpu/test_data.render_cells``, of the
+bench's five-channel Cell Painting field builder, of the yeast time-lapse
+(``yeast_timelapse``, the ``yeast_zarr`` fixture's generator) and the
+budding-yeast movie, and a bright-field ALCATRAS-like trap field
+(``render_trap_field``, the renderer of ``tests/test_trap_hardening.py``)."""
 
 from __future__ import annotations
 
@@ -157,3 +160,211 @@ def cellpainting_movie(n_pos: int, ntps: int, size: int = 1080, seed: int = 13,
                               ring * 0.8 + noise()])
             out[p, t, :, 0] = np.clip(np.rint(stack * 4096), 0, 65535).astype(np.uint16)
     return out
+
+
+def _to_uint16(img: np.ndarray, rng: np.random.Generator, peak: float = 12000.0) -> np.ndarray:
+    noisy = img * peak + rng.normal(200.0, 30.0, img.shape)
+    return np.clip(noisy, 0, 65535).astype(np.uint16)
+
+
+def yeast_timelapse(seed: int, T: int = 4, C: int = 3, Z: int = 3, size: int = 293) -> np.ndarray:
+    """A drifting yeast-like time-lapse, (T, C, Z, Y, X) uint16: the
+    ``yeast_zarr`` fixture's positions are ``yeast_timelapse(40 + field)``
+    at 293 x 293 (the JAX package's ``test_data._yeast_timelapse``)."""
+    rng = np.random.default_rng(seed)
+    cells, nuclei, _ = render_cells(size, 18, rng)
+    out = np.zeros((T, C, Z, size, size), np.uint16)
+    for t in range(T):
+        dy, dx = int(round(1.5 * t)), int(round(-1.0 * t))
+        shifted = np.roll(np.roll(cells, dy, 0), dx, 1)
+        nshift = np.roll(np.roll(nuclei, dy, 0), dx, 1)
+        growth = 1.0 + 0.05 * t
+        for z in range(Z):
+            zfac = 1.0 - 0.25 * abs(z - Z // 2)
+            out[t, 0, z] = _to_uint16(shifted * zfac * growth, rng, peak=9000)
+            if C > 1:
+                out[t, 1, z] = _to_uint16(nshift * zfac, rng, peak=11000)
+            if C > 2:
+                out[t, 2, z] = _to_uint16((shifted - nshift).clip(0) * zfac, rng, peak=7000)
+    return out
+
+
+def render_budding_movie(size: int, T: int, rng: np.random.Generator, n_mothers: int = 5,
+                         bud_max_radius: float = 6.0):
+    """Synthetic budding-yeast movie with ground-truth lineage: ``(frames
+    (T, Y, X) f32, labels (T, Y, X) int32 persistent ids, lineage
+    {bud_label: mother_label})``. Mothers are fixed rotated ellipses; each
+    sprouts one bud at a random tp >= 1 on its rim, touching it at the neck
+    and growing (the JAX package's ``test_data.render_budding_movie``)."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    margin = 28
+    mothers: list[dict] = []
+    label = 0
+    attempts = 0
+    while len(mothers) < n_mothers and attempts < n_mothers * 50:
+        attempts += 1
+        cy, cx = rng.uniform(margin, size - margin, 2)
+        if mothers and min(np.hypot(m["cy"] - cy, m["cx"] - cx) for m in mothers) < 46:
+            continue
+        label += 1
+        mothers.append(dict(cy=cy, cx=cx, a=rng.uniform(10, 14), b=rng.uniform(8, 12),
+                            theta=rng.uniform(0, np.pi), label=label))
+    lineage: dict[int, int] = {}
+    buds = []
+    for m in mothers:
+        label += 1
+        buds.append(dict(mother=m, tp0=int(rng.integers(1, max(2, T - 1))),
+                         psi=rng.uniform(0, 2 * np.pi), label=label))
+        lineage[label] = m["label"]
+
+    def _paint(frame, labels_map, cy, cx, a, b, theta, lbl, overwrite=False):
+        ct, st = np.cos(theta), np.sin(theta)
+        u = (xx - cx) * ct + (yy - cy) * st
+        v = -(xx - cx) * st + (yy - cy) * ct
+        d2 = (u / a) ** 2 + (v / b) ** 2
+        inside = d2 <= 1.0
+        np.maximum(frame, np.clip(1.2 - d2, 0, None), out=frame)
+        if overwrite:
+            labels_map[inside] = lbl
+        else:
+            labels_map[inside & (labels_map == 0)] = lbl
+
+    frames = np.zeros((T, size, size), np.float32)
+    labels = np.zeros((T, size, size), np.int32)
+    for t in range(T):
+        for m in mothers:
+            _paint(frames[t], labels[t], m["cy"], m["cx"], m["a"], m["b"], m["theta"], m["label"])
+        for bud in buds:
+            if t < bud["tp0"]:
+                continue
+            m = bud["mother"]
+            r = min(1.0, 0.35 + 0.35 * (t - bud["tp0"])) * bud_max_radius
+            ct, st = np.cos(m["theta"]), np.sin(m["theta"])
+            px = m["a"] * np.cos(bud["psi"])
+            py = m["b"] * np.sin(bud["psi"])
+            bx = m["cx"] + px * ct - py * st
+            by = m["cy"] + px * st + py * ct
+            out_dir = np.array([by - m["cy"], bx - m["cx"]])
+            out_dir = out_dir / max(np.hypot(*out_dir), 1e-6)
+            # buds overwrite the mother at the neck: they are the newer cell
+            _paint(frames[t], labels[t], by + out_dir[0] * r * 0.8, bx + out_dir[1] * r * 0.8,
+                   r, r, 0.0, bud["label"], overwrite=True)
+        frames[t] += rng.normal(0.0, 0.02, (size, size)).astype(np.float32)
+    return frames, labels, lineage
+
+
+def _blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """Separable Gaussian with reflect padding, truncated at 4 sigma
+    (``scipy.ndimage.gaussian_filter``'s defaults, in numpy)."""
+    r = int(4.0 * sigma + 0.5)
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    k = np.exp(-0.5 * (x / sigma) ** 2)
+    k /= k.sum()
+    out = img.astype(np.float64)
+    for axis in (0, 1):
+        pad = [(0, 0), (0, 0)]
+        pad[axis] = (r, r)
+        p = np.pad(out, pad, mode="symmetric")
+        n = out.shape[axis]
+        out = sum(k[j] * np.take(p, np.arange(j, j + n), axis=axis) for j in range(2 * r + 1))
+    return out
+
+
+def render_trap_field(size: int = 420, spacing: int = 60, trap: int = 18, seed: int = 0,
+                      illumination: float = 0.0, defocus: float = 0.0, n_debris: int = 0,
+                      occupancy: float = 0.0, edge_offset: int = 20,
+                      drift: tuple[float, float] = (0.0, 0.0)):
+    """Bright-field-like ALCATRAS trap grid: U-shaped trap walls (three bars
+    brighter than the background) on a noisy field, with optional
+    degradations (illumination ramp, defocus blur, debris, cells in traps,
+    drift). Returns ``(image (size, size) f32, interior_truth_centres
+    (N, 2))``; traps within ``trap`` px of the border are rendered but not
+    in the truth. The renderer of ``tests/test_trap_hardening.py``, with
+    its defocus blur in numpy."""
+    rng = np.random.default_rng(seed)
+    img = rng.normal(100.0, 3.0, (size, size)).astype(np.float32)
+    n = (size - 2 * edge_offset) // spacing
+    centres = []
+    dy, dx = drift
+    h = trap // 2
+
+    def xs(a, b):
+        return slice(max(0, a), min(size, b))
+
+    for i in range(n + 1):  # +1 row/col so some traps straddle the edge
+        for j in range(n + 1):
+            cy = edge_offset + spacing // 2 + i * spacing + dy
+            cx = edge_offset + spacing // 2 + j * spacing + dx
+            iy, ix = int(round(cy)), int(round(cx))
+            ys = slice(max(0, iy - h), min(size, iy + h))
+            img[ys, xs(ix - h, ix - h + 3)] += 80
+            img[ys, xs(ix + h - 3, ix + h)] += 80
+            img[slice(max(0, iy + h - 3), min(size, iy + h)), xs(ix - h, ix + h)] += 80
+            if rng.uniform() < occupancy:
+                yy, xx = np.mgrid[0:size, 0:size]
+                cell = (yy - iy) ** 2 + (xx - ix + 2) ** 2 <= (h - 5) ** 2
+                img[cell] += rng.uniform(20, 45)
+            if trap <= iy <= size - trap and trap <= ix <= size - trap:
+                centres.append((cy, cx))
+    for _ in range(n_debris):
+        yy, xx = np.mgrid[0:size, 0:size]
+        by, bx = rng.uniform(0, size, 2)
+        r = rng.uniform(3, 9)
+        img[(yy - by) ** 2 + (xx - bx) ** 2 <= r ** 2] += rng.choice([-60.0, 120.0])
+    if defocus > 0:
+        img = _blur(img, defocus)
+    if illumination > 0:
+        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+        img = img * (1.0 + illumination * ((yy / size - 0.5) + 0.6 * (xx / size - 0.5)))
+    return img.astype(np.float32), np.asarray(centres, np.float64)
+
+
+def yeast_trap_movie(T: int = 5, size: int = 1024, spacing: int = 160, trap: int = 52,
+                     seed: int = 17, C: int = 3, Z: int = 3):
+    """Yeast in ALCATRAS-like traps over time, (T, C, Z, size, size) uint16,
+    and the rendered trap centres (N, 2) of frame 0.
+
+    Channel 0 is bright field: the trap grid of :func:`render_trap_field`
+    at this spacing and trap size, with the cells faintly visible.
+    Channels 1 and 2 are fluorescence: each trap holds one or two mother
+    cells (ellipses, 5 to 9 px semi-axes) near its centre, a third of them
+    growing a bud from a random timepoint on, cytoplasm in channel 1 and
+    the nucleus in channel 2. The stage drifts by whole pixels (about 1 px
+    a timepoint); the z planes dim away from the middle one."""
+    rng = np.random.default_rng(seed)
+    bf, centres = render_trap_field(size=size, spacing=spacing, trap=trap, seed=seed)
+    cells = []
+    for cy, cx in np.asarray(centres):
+        for k in range(int(rng.integers(1, 3))):
+            a, b = rng.uniform(6, 9), rng.uniform(5, 7)
+            oy, ox = rng.uniform(-6, 6), rng.uniform(-6, 6) + (0 if k == 0 else 14)
+            bud = None
+            if rng.random() < 1 / 3:
+                bud = (int(rng.integers(1, max(2, T))), rng.uniform(0, 2 * np.pi))
+            cells.append((cy - trap * 0.1 + oy, cx + ox, a, b, rng.uniform(0, np.pi),
+                          rng.uniform(0.7, 1.0), bud))
+    out = np.zeros((T, C, Z, size, size), np.uint16)
+    for t in range(T):
+        cyto = np.zeros((size, size), np.float32)
+        nuc = np.zeros((size, size), np.float32)
+        for cy, cx, a, b, theta, amp, bud in cells:
+            _render_ellipse(cyto, cy, cx, a, b, theta, amp)
+            _render_ellipse(nuc, cy, cx, a * 0.45, b * 0.45, theta, amp)
+            if bud is not None and t >= bud[0]:
+                r = min(1.0, 0.4 + 0.3 * (t - bud[0])) * 5.0
+                by = cy + (b + r * 0.8) * np.sin(bud[1])
+                bx = cx + (a + r * 0.8) * np.cos(bud[1])
+                _render_ellipse(cyto, by, bx, r, r, 0.0, amp)
+        dy, dx = int(round(0.8 * t)), int(round(-0.6 * t))
+        frames = [bf + 25.0 * cyto, cyto, nuc]
+        for c in range(C):
+            frame = np.roll(frames[c % 3], (dy, dx), axis=(0, 1))
+            for z in range(Z):
+                zfac = 1.0 - 0.25 * abs(z - Z // 2)
+                if c == 0:
+                    img = frame * (0.9 + 0.1 * zfac) + rng.normal(0, 2.0, frame.shape)
+                else:
+                    img = frame * zfac * (9000 if c == 1 else 6000) + rng.normal(200, 30,
+                                                                                 frame.shape)
+                out[t, c, z] = np.clip(img, 0, 65535).astype(np.uint16)
+    return out, np.asarray(centres)

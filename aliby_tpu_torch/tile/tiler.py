@@ -1,7 +1,5 @@
-"""Tilers: mono-tile with drift correction, and embedding crops
-(counterpart of ``aliby_tpu/tile/tiler.py``). The trap grid (``tile_size``
-set on a ``Tiler``: trap detection, ``tile/traps.py``) raises
-``NotImplementedError``: ROADMAP queue 1, item 5.
+"""Tilers: the trap grid and the mono-tile with drift correction, and
+embedding crops (counterpart of ``aliby_tpu/tile/tiler.py``).
 
 Reference surface mirrored (``tile/tiler.py``):
 
@@ -10,10 +8,12 @@ Reference surface mirrored (``tile/tiler.py``):
   effective gate (``calculate_drift``, ``tiler.py:426-438``);
 - ``dispatch_tiler("crop") -> CropTiler`` else ``Tiler``; returns a factory
   taking the image instance (``tiler.py:58-72``);
-- ``Tiler.run_tp`` on the first call covers the full frame when
-  ``tile_size`` is None (``tiler.py:247``; with a ``tile_size`` the
-  reference detects traps, which raises here); per-tp drift comes from FFT
-  phase correlation of consecutive reference frames; the return value is
+- ``Tiler.run_tp`` on the first call detects traps when ``tile_size`` is
+  set (``tile/traps.py`` on ``device``; traps too close to the edge for a
+  full tile are dropped, and a failed detection falls back to one centred
+  tile, ``tiler.py:678-681``), or covers the full frame when ``tile_size``
+  is None (``tiler.py:247``); per-tp drift comes from FFT phase
+  correlation of consecutive reference frames; the return value is
   ``{"drift": tile_locs.to_dict(tp), "pixels": get_fczyx(tp)}``;
 - crops that leave the frame are median-padded, or all-NaN when >25% of
   the tile is padding (``tiler.py:599-648``);
@@ -39,9 +39,6 @@ from aliby_tpu_torch.tile.geometry import TileLocations
 from aliby_tpu_torch.utils.abc import ParametersABC, StepABC
 
 logger = logging.getLogger("aliby_tpu_torch")
-
-_TRAPS_ITEM = "trap detection (tile/traps.py) and the trap path: ROADMAP queue 1, item 5"
-
 
 class TilerParameters(ParametersABC):
     # track_drift defaults OFF to match the reference's EFFECTIVE behavior:
@@ -136,16 +133,17 @@ def crop_with_median_pad(
 class Tiler(StepABC):
     """Trap-grid or mono-tile tiler with drift tracking."""
 
-    def __init__(self, image, parameters: TilerParameters):
+    def __init__(self, image, parameters: TilerParameters, device=None):
         super().__init__(parameters)
         self.image = image
         self.pixels = image.data
         self.tile_locs: TileLocations | None = None
         self._frames = _FrameCache(self.pixels)
+        self.device = device
 
     @classmethod
     def from_image(cls, image, parameters: TilerParameters, **kwargs):
-        return cls(image, parameters)
+        return cls(image, parameters, device=kwargs.get("device"))
 
     # -- geometry setup -----------------------------------------------------
 
@@ -169,7 +167,24 @@ class Tiler(StepABC):
         )
 
     def set_areas_of_interest(self, frame: np.ndarray) -> None:
-        raise NotImplementedError(f"Tiler with tile_size={self.tile_size}: {_TRAPS_ITEM}")
+        from aliby_tpu_torch.tile.traps import TrapDetectionError, segment_traps
+
+        try:
+            centres = segment_traps(frame, self.tile_size, device=self.device)
+            H, W = frame.shape
+            half = self.tile_size // 2
+            inside = ((centres[:, 0] >= half) & (centres[:, 0] < H - half)
+                      & (centres[:, 1] >= half) & (centres[:, 1] < W - half))
+            centres = centres[inside]
+            if len(centres) == 0:
+                raise TrapDetectionError("all traps on the edge")
+            self.tile_locs = TileLocations.from_tiler_init(centres, self.tile_size)
+        except TrapDetectionError as e:  # graceful degradation (tiler.py:678-681)
+            logger.warning("Trap detection failed (%s); using center tile.", e)
+            self.tile_locs = TileLocations.from_tiler_init(
+                np.asarray([[frame.shape[0] / 2, frame.shape[1] / 2]]),
+                (self.tile_size, self.tile_size),
+            )
 
     # -- drift --------------------------------------------------------------
 

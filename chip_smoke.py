@@ -106,7 +106,30 @@ Phases, in order; any failure exits non-zero:
    idle share of a short window of the per-tp and mesh paths, the time of
    one ``stitch_movie`` chunk and one ``stitch_pair`` batch, and the
    intersection count's kernel row (phase 4's measurements, at the mesh's
-   (2, 1,166,400, 1) -> 66,049 bins). Each phase prints its seconds.
+   (2, 1,166,400, 1) -> 66,049 bins).
+6. the yeast path (slice 5, example 03): one position x 5 tps x 3 channels
+   x 3 z of 1024^2 uint16 (``test_data.yeast_trap_movie``: 36 ALCATRAS-like
+   traps in bright field, yeast cells in them, some budding, the stage
+   drifting ~1 px a tp) in a zlib zarr store. (a) Trap detection at tile
+   size 117 on the card and on the CPU: the same count, every centre within
+   1 px of the CPU's, the card's time. (b) The BABY pipeline
+   (``pipe_builder_baby``: trap tiles, drift tracking, the threshold base at
+   scale 0.6, 3 layers; the BABY default tree plus every cellfuns, trap and
+   localisation metric and a channel ratio) through the state path (no
+   parquet): kernels 3-5 launched; two card runs identical (layered masks,
+   tracking/lineage columns, profile columns, NaN equal); trap centres,
+   drifts, masks and tracking/lineage equal to the CPU's over all 5 tps (a
+   segment-only CPU run) and profiles of tps 0-1 within
+   ``extract.tolerances`` (a CPU run with extraction, its sums in the
+   kernel's order); ms a tp, the stage split, peak memory and the device
+   idle share of one tp. (c) The cellpose kind on the trap tiles through the
+   compiled runner, 3 tps, a stitch tracker: kernels 1-5 launched with B =
+   traps, the card's tracks equal to the CPU's ``stitch_movie`` on the
+   card's labels. (d) Kernels 3-5 at the overlap path's virtual-tile shape
+   (traps x 3 layers of 117^2, empty layers among them), recorded in (b):
+   held to their plain versions (the sums to the kernel's order on the
+   CPU) and timed, three more rows of the ``kernels`` line.
+   Each phase prints its seconds.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
 result. Weights are the bundled checkpoint; inputs come from fixed seeds.
@@ -156,6 +179,9 @@ REPLACES = {
     "segment_sum_matmul": "aliby_tpu/ops/pallas_segsum.py:64",
     "binned_sum_cols_batched (stitch_pair intersection count)":
         "aliby_tpu/ops/pallas_segsum.py:234",
+    "binned_sum_cols_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:234",
+    "binned_minmax_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:251",
+    "table_lookup_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:302",
 }
 SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
 DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
@@ -1037,14 +1063,16 @@ def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
         f"{k} {v:.2f} ms ({100 * v / total:.0f}%)" for k, v in med.items()))
 
 
-def device_share(fn, what="one batch") -> dict | None:
-    """Device-busy share of one run of ``fn`` and its top kernels, from
-    torch.profiler (CUDA kernel self time over wall time); None when the
-    profiler saw no CUDA kernels."""
+def device_share(fn, what="one batch", warmup=True) -> dict | None:
+    """Device-busy share of one run of ``fn`` (after a warm-up run unless
+    ``warmup`` is False) and its top kernels, from torch.profiler (CUDA
+    kernel self time over wall time); None when the profiler saw no CUDA
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1704,6 +1732,359 @@ def runner_phase(dev, size=RUNNER_SIZE, ntps=RUNNER_TPS, n_pos=RUNNER_POS,
 
 
 
+# ------------------------------------------------------------------ phase 6
+YEAST_SIZE, YEAST_TPS, YEAST_TILE, YEAST_CPU_TPS, CELLPOSE_TPS = 1024, 5, 117, 2, 3
+YEAST_KERNELS = ("binned_sum_cols_batched", "binned_minmax_batched", "table_lookup_batched")
+VIRTUAL = " (BABY virtual tiles)"
+
+
+def yeast_pipeline(store: str, ntps: int, extract: bool = True) -> dict:
+    """Example 03's BABY pipeline on trap tiles: threshold base (scale 0.6),
+    3 layers, drift tracking on, channel 1 segmented; the tree is the BABY
+    default (intensity, sizeshape on channels 1 and 2) plus every cellfuns,
+    trap and localisation metric and a channel ratio (every plan entry)."""
+    from aliby_tpu_torch.extract.cellfuns import MASK_METRICS, PIXEL_METRICS, TRAP_METRICS
+    from aliby_tpu_torch.pipe_builder_baby import build_pipeline_steps
+
+    p = build_pipeline_steps(channels_to_segment={"cell": 1}, channels_to_extract=[1, 2],
+                             features_to_extract=("intensity", "sizeshape"),
+                             tile_size=YEAST_TILE, base_kind="threshold", threshold_scale=0.6)
+    p["steps"]["tile"]["image_kwargs"] = {"source": {"key": "pos1", "path": store},
+                                          "capture_order": "TCZYX"}
+    p["steps"]["tile"]["track_drift"] = True
+    tree = p["steps"]["extract_cell"]["tree"]
+    tree["None"]["None"] = tuple(tree["None"]["None"]) + MASK_METRICS
+    extra = PIXEL_METRICS + TRAP_METRICS + ("nuc_est_conv", "small_peaks_conv")
+    for c in (1, 2):
+        tree[c]["max"] = tuple(tree[c]["max"]) + extra
+    tree[(1, 2)] = {"div": {"max": ("mean", "median")}}
+    if not extract:
+        del p["steps"]["extract_cell"], p["passed_data"]["extract_cell"]
+    p.update(ntps=ntps, save=[])
+    return p
+
+
+def yeast_outputs(state: dict, pipeline: dict) -> dict:
+    from aliby_tpu_torch.engine.core import profile_columns
+    from aliby_tpu_torch.pipe_baby import tracking_columns
+
+    tiler = state["fn"]["tile"]
+    return {"centres": tiler.tile_locs.initial_centres.copy(),
+            "drifts": np.asarray(tiler.tile_locs.drifts),
+            "masks": [np.stack(r["masks"]) for r in state["data"]["segment_cell"]],
+            "tracking": tracking_columns(state, pipeline).get("segment_cell", {}),
+            "profiles": profile_columns(state, pipeline) if "extract_cell" in pipeline["steps"]
+            else {}}
+
+
+def same_yeast(a: dict, b: dict, n_tps: int, what: str) -> None:
+    """Tiles, layered masks and tracking/lineage columns of the first
+    ``n_tps`` tps identical."""
+    if not (np.array_equal(a["centres"], b["centres"])
+            and np.array_equal(a["drifts"][:n_tps], b["drifts"][:n_tps])):
+        raise AssertionError(f"{what}: trap centres or drifts differ")
+    for t in range(n_tps):
+        if not np.array_equal(a["masks"][t], b["masks"][t]):
+            n = int((a["masks"][t] != b["masks"][t]).sum())
+            raise AssertionError(f"{what}: layered masks differ at tp {t} ({n} pixels)")
+    rows = lambda c: c["timepoint"] < n_tps  # noqa: E731
+    ta, tb = a["tracking"], b["tracking"]
+    if list(ta) != list(tb) or any(not np.array_equal(ta[k][rows(ta)], tb[k][rows(tb)])
+                                   for k in ta):
+        raise AssertionError(f"{what}: tracking/lineage columns differ")
+
+
+def compare_yeast_profiles(got: dict, want: dict, n_tps: int, what: str) -> int:
+    """Card profiles against the CPU's over the first ``n_tps`` tps: the
+    same columns and rows, metadata and integer columns exact, features
+    within ``extract.tolerances``; returns the number of values compared."""
+    from aliby_tpu_torch.extract.tolerances import INTEGER_VALUED, beyond_tolerance
+
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: profile column names differ")
+    g_rows = np.asarray(got["metadata_tp"]) < n_tps
+    w_rows = np.asarray(want["metadata_tp"]) < n_tps
+    n = 0
+    for name in want:
+        g, w = np.asarray(got[name])[g_rows], np.asarray(want[name])[w_rows]
+        if name.startswith("metadata_") or g.dtype.kind != "f":
+            if g.tolist() != w.tolist():
+                raise AssertionError(f"{what}: {name} differs")
+            continue
+        branch, feat = name.rsplit("/", 1)
+
+        def ref(other, branch=branch, w=w):
+            col = want.get(f"{branch}/{other}")
+            return w if col is None else np.asarray(col)[w_rows].astype(np.float64)
+
+        bad = beyond_tolerance(feat, g, w, ref)
+        if feat in INTEGER_VALUED and not np.array_equal(g, w, equal_nan=True):
+            raise AssertionError(f"{what}: integer column {name} differs")
+        if bad.any():
+            raise AssertionError(f"{what}: {name}: {int(bad.sum())} values beyond tolerance "
+                                 f"({g[bad][:3]} vs {w[bad][:3]})")
+        n += g.size
+    return n
+
+
+def virtual_tile_rows(recs: dict, launches: dict) -> dict:
+    """Kernels 3-5 held to their plain versions and timed at the overlap
+    path's virtual-tile shape (every (trap, layer) one image, empty layers
+    among them), recorded from the BABY card run."""
+    from aliby_tpu_torch.ops import segsum
+
+    out = {}
+    vals, bins, n_bins = recs["binned_sum_cols_batched"]
+    empty = int((bins.reshape(bins.shape[0], -1).amax(dim=1) == 0).sum())
+    log(f"[yeast] virtual-tile shape {tuple(bins.shape)}: {empty} of {bins.shape[0]} "
+        f"layers empty")
+    if empty == 0:
+        raise AssertionError("the recorded virtual tiles hold no empty layer")
+    out["binned_sum_cols_batched" + VIRTUAL] = binned_sum_row(
+        vals, bins, n_bins, launches["binned_sum_cols_batched"],
+        name="binned_sum_cols_batched" + VIRTUAL)
+    vals, bins, n_bins = recs["binned_minmax_batched"]
+    Bv, K = bins.shape[0], vals.shape[-1]
+    N = bins[0].numel()
+    idx = segsum._flat_index(bins.reshape(Bv, -1), n_bins).unsqueeze(1).expand(-1, K)
+    flat_vals = vals.reshape(-1, K).to(torch.float32)
+    mn0 = torch.full((Bv * n_bins + 1, K), float("inf"), device=vals.device)
+    mx0 = torch.full((Bv * n_bins + 1, K), float("-inf"), device=vals.device)
+    out["binned_minmax_batched" + VIRTUAL] = kernel_row(
+        "binned_minmax_batched" + VIRTUAL,
+        lambda: segsum.binned_minmax_batched(vals, bins, n_bins),
+        lambda: segsum.binned_minmax_batched_plain(vals, bins, n_bins),
+        lambda: (mn0.scatter_reduce(0, idx, flat_vals, "amin"),
+                 mx0.scatter_reduce(0, idx, flat_vals, "amax")),
+        bytes_=Bv * N * (4 * K + 4) + 2 * Bv * n_bins * K * 4, ops=2 * Bv * N * K,
+        shape=(Bv, N, K, n_bins), launches=launches["binned_minmax_batched"])
+    table, bins = recs["table_lookup_batched"]
+    Bt, L, K = table.shape
+    N = bins[0].numel()
+    flat_tab = table.reshape(Bt * L, K)
+    fidx = (bins.reshape(Bt, -1).clamp(0, L - 1).to(torch.int64)
+            + torch.arange(Bt, device=bins.device)[:, None] * L).reshape(-1)
+    out["table_lookup_batched" + VIRTUAL] = kernel_row(
+        "table_lookup_batched" + VIRTUAL,
+        lambda: segsum.table_lookup_batched(table, bins),
+        lambda: segsum.table_lookup_batched_plain(table, bins), lambda: flat_tab[fidx],
+        bytes_=Bt * N * 4 + Bt * N * K * 4 + Bt * L * K * 4, ops=0, shape=(Bt, N, L, K),
+        launches=launches["table_lookup_batched"])
+    return out
+
+
+class StageTimer:
+    """Wraps a module attribute to add up the wall time of its calls (the
+    card synchronised before and after each)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.s, self.calls = module, name, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            sync()
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def yeast_phase(dev) -> dict:
+    """Phase 6: the yeast time-lapse path (example 03 on trap tiles).
+    Returns the kernel rows of kernels 3-5 at the virtual-tile shape."""
+    import functools
+    import tempfile
+
+    from aliby_tpu_torch.engine import core
+    from aliby_tpu_torch.extract import reductions
+    from aliby_tpu_torch.io import zarrlite
+    from aliby_tpu_torch.models import baby, segment
+    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.pipe import init_step
+    from aliby_tpu_torch.pipe_baby import init_step as baby_init_step
+    from aliby_tpu_torch.test_data import yeast_trap_movie
+    from aliby_tpu_torch.tile.traps import segment_traps
+    from aliby_tpu_torch.track import trackers
+
+    t0 = time.perf_counter()
+    movie, truth = yeast_trap_movie(T=YEAST_TPS, size=YEAST_SIZE, seed=17)
+    tmp = tempfile.TemporaryDirectory(prefix="aliby_yeast_")
+    store = os.path.join(tmp.name, "pos1")
+    zarrlite.write_array(store, movie, chunks=(1, 1, 1, YEAST_SIZE, YEAST_SIZE),
+                         compressor="zlib")
+    log(f"[yeast] 1 position x {YEAST_TPS} tps x 3 channels x 3 z x {YEAST_SIZE}^2 uint16 "
+        f"({len(truth)} interior traps rendered) written to a zlib zarr store in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) trap detection on the card and on the CPU
+    frame = movie[0, 0, 0].astype(np.float32)
+    with torch.no_grad():
+        segment_traps(frame, YEAST_TILE, device=dev)  # warm-up (cuFFT plans)
+        sync()
+        t0 = time.perf_counter()
+        card = segment_traps(frame, YEAST_TILE, device=dev)
+        sync()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = segment_traps(frame, YEAST_TILE, device="cpu")
+        t_cpu = time.perf_counter() - t0
+    if len(card) != len(cpu):
+        raise AssertionError(f"(a) trap counts differ: card {len(card)}, CPU {len(cpu)}")
+    # each card centre's distance (in either axis) to the nearest CPU centre
+    off = np.abs(card[:, None, :].astype(np.int64) - cpu[None, :, :]).max(axis=2).min(axis=1)
+    if off.max() > 1:
+        raise AssertionError(f"(a) a trap centre is {off.max()} px from the CPU's")
+    if len(card) < 0.9 * len(truth):
+        raise AssertionError(f"(a) {len(card)} traps found of {len(truth)}")
+    log(f"[yeast] (a) trap detection at tile {YEAST_TILE}: {len(card)} traps ({len(truth)} "
+        f"rendered), centres within {int(off.max())} px of the CPU's "
+        f"({int((off == 0).sum())} equal); card {t_card * 1e3:.1f} ms, "
+        f"CPU {t_cpu * 1e3:.1f} ms")
+
+    # (b) the BABY path through the state path
+    wrappers = {"binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+                "binned_minmax_batched": segsum.binned_minmax_batched,
+                "table_lookup_batched": segsum.table_lookup_batched}
+    pipe = yeast_pipeline(store, YEAST_TPS)
+
+    def run_baby(device, pipeline):
+        return core.run_pipeline_return_state(pipeline, None, baby_init_step, device=device)
+
+    virtual = lambda v, b, *rest: b.dim() == 3 and b.shape[0] > len(card) \
+        and tuple(b.shape[1:]) == (YEAST_TILE, YEAST_TILE)  # noqa: E731
+    recs = {name: Recorder(reductions, name, virtual) for name in YEAST_KERNELS}
+    for w in wrappers.values():
+        w.launches = 0
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(recs.values()):
+        state1 = run_baby(dev, pipe)
+    sync()
+    t_run1 = time.perf_counter() - t0
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"(b) kernels not launched on the BABY path: {launches}")
+    out1 = yeast_outputs(state1, pipe)
+    n_tiles = state1["fn"]["tile"].n_tiles
+    log(f"[yeast] (b) BABY path on the card: {YEAST_TPS} tps x {n_tiles} trap tiles in "
+        f"{t_run1:.2f} s ({t_run1 / YEAST_TPS * 1e3:.1f} ms a tp, trap detection included); "
+        f"peak device memory {gb:.3f} GB; launches {launches}")
+    with StageTimer(segment, "threshold_segment") as seg_t, \
+            StageTimer(baby, "stitch_rois") as trk_t:
+        t0 = time.perf_counter()
+        state2 = run_baby(dev, pipe)
+        sync()
+        t_run2 = time.perf_counter() - t0
+    out2 = yeast_outputs(state2, pipe)
+    same_yeast(out1, out2, YEAST_TPS, "(b) two card runs")
+    if not same_columns(out1["profiles"], out2["profiles"]):
+        raise AssertionError("(b) two card runs: profile columns differ")
+    timer = state2["timer"].summary()
+    seg_total = timer["segment_cell"]["total_s"]
+    stages = {"tiling_s": timer["tile"]["total_s"], "segmentation_s": seg_t.s,
+              "tracking_s": trk_t.s, "baby_bookkeeping_s": seg_total - seg_t.s - trk_t.s,
+              "extraction_s": timer["extract_cell"]["total_s"]}
+    n_rows = len(out1["profiles"]["metadata_tile"])
+    n_mothers = int((out1["tracking"]["mother_label"] > 0).sum())
+    log(f"[yeast] (b) two card runs identical: layered masks, tracking/lineage "
+        f"({len(out1['tracking']['tile'])} rows, {n_mothers} with a mother), "
+        f"{len(out1['profiles'])} profile columns x {n_rows} rows (NaN equal)")
+    log(f"[yeast] (b) second run {t_run2:.2f} s ({t_run2 / YEAST_TPS * 1e3:.1f} ms a tp); stage "
+        "split (card synchronised around the segmenter and the tracker): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()))
+    # the device's idle share over one tp (the last), after the others
+    short = yeast_pipeline(store, YEAST_TPS - 1)
+    state = run_baby(dev, short)
+    idle = device_share(lambda: core.pipeline_step(
+        short, state, None, functools.partial(baby_init_step, device=dev)),
+        f"one BABY tp (tp {YEAST_TPS - 1}) of {n_tiles} trap tiles", warmup=False)
+
+    # the CPU: the whole movie without extraction, then YEAST_CPU_TPS tps with it
+    t0 = time.perf_counter()
+    with kernel_order_on_cpu():
+        seg_only = yeast_pipeline(store, YEAST_TPS, extract=False)
+        cpu_seg = yeast_outputs(run_baby("cpu", seg_only), seg_only)
+        short = yeast_pipeline(store, YEAST_CPU_TPS)
+        cpu_full = yeast_outputs(run_baby("cpu", short), short)
+    t_cpu = time.perf_counter() - t0
+    same_yeast(out1, cpu_seg, YEAST_TPS, "(b) card vs CPU")
+    same_yeast(out1, cpu_full, YEAST_CPU_TPS, "(b) card vs CPU (with extraction)")
+    n_vals = compare_yeast_profiles(out1["profiles"], cpu_full["profiles"], YEAST_CPU_TPS,
+                                    "(b) card vs CPU")
+    log(f"[yeast] (b) card == CPU: trap centres, drifts, layered masks and tracking/lineage "
+        f"over {YEAST_TPS} tps; profiles of tps 0-{YEAST_CPU_TPS - 1} within "
+        f"extract.tolerances ({n_vals} values; the CPU's sums in the kernel's order); CPU runs "
+        f"{t_cpu:.1f} s")
+
+    # (c) cellpose on trap tiles through the compiled runner
+    cp = {
+        "steps": {
+            "tile": {"tile_size": YEAST_TILE, "track_drift": True,
+                     "image_kwargs": {"source": {"key": "pos1", "path": store},
+                                      "capture_order": "TCZYX"}},
+            "segment_cell": {"segmenter_kwargs": {"kind": "cellpose", "min_size": 10},
+                             "channel_to_segment": 1},
+            "track_cell": {"kind": "stitch", "max_labels": 256, "iou_threshold": 0.25},
+            "extract_cell": {"tree": {"None": {"None": ["area"]}, 1: {"max": ["mean"]}},
+                             "kwargs": {}},
+        },
+        "passed_data": {"extract_cell": [("masks", "segment_cell"), ("pixels", "tile")],
+                        "track_cell": [("masks", "segment_cell")]},
+        "passed_methods": {"segment_cell": ("tile", "get_fczyx")},
+        "save": [], "ntps": CELLPOSE_TPS, "compiled": True,
+    }
+    main = dict(wrappers, successor_prop=stencil.successor_prop, diffuse_heat=stencil.diffuse_heat)
+    for w in main.values():
+        w.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    st = core.run_pipeline_return_state(cp, None, init_step, device=dev)
+    sync()
+    t_cp = time.perf_counter() - t0
+    cp_launches = {k: w.launches for k, w in main.items()}
+    if min(cp_launches.values()) <= 0:
+        raise AssertionError(f"(c) kernels not launched: {cp_launches}")
+    labels = np.stack([np.stack(m) for m in st["data"]["segment_cell"]]).astype(np.int32)
+    F = labels.shape[1]
+    if F != st["fn"]["tile"].n_tiles or F < 0.9 * len(truth):
+        raise AssertionError(f"(c) {F} fields a tp, {st['fn']['tile'].n_tiles} traps")
+    g, m = trackers.stitch_movie(torch.from_numpy(labels),
+                                 torch.zeros(labels.shape[1:], dtype=torch.int32),
+                                 torch.zeros(F, dtype=torch.int32), False,
+                                 max_labels=256, iou_threshold=0.25)
+    for t, tr in enumerate(st["data"]["track_cell"]):
+        if tr["max_label"] != m[t].tolist() or not all(
+                np.array_equal(tr["labels"][f], g[t, f].numpy()) for f in range(F)):
+            raise AssertionError(f"(c) tp {t}: card tracks != CPU stitch_movie")
+    log(f"[yeast] (c) cellpose on {F} trap tiles, compiled, {CELLPOSE_TPS} tps: {t_cp:.2f} s; "
+        f"launches {cp_launches}; objects a tp {[int((labels[t].reshape(F, -1).max(1)).sum()) for t in range(CELLPOSE_TPS)]} "
+        f"(sum of per-trap counts); card tracks == CPU stitch_movie on the card's labels")
+
+    # (d) kernels 3-5 at the virtual-tile shape
+    for name, r in recs.items():
+        if r.args is None:
+            raise AssertionError(f"(d) no {name} call at the virtual-tile shape was recorded")
+    rows = virtual_tile_rows({k: r.args for k, r in recs.items()}, launches)
+    for r in rows.values():
+        r.update(yeast={"ms_per_tp": t_run2 / YEAST_TPS * 1e3, "peak_gb": gb,
+                        "stages_s": stages, "idle": idle, "traps": len(card),
+                        "trap_detection_ms": t_card * 1e3})
+    tmp.cleanup()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1906,6 +2287,10 @@ def main() -> int:
     if rows[TRACKER_ROW]["ms"] > rows[TRACKER_ROW]["library_ms"]:
         log("[report] the trackers' intersection count is slower than index_add_ in this call")
     phase_done("5 (runner)")
+
+    # ------------------------------------------------------------ 6 yeast path
+    rows.update(yeast_phase(dev))
+    phase_done("6 (yeast path)")
 
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},

@@ -670,3 +670,77 @@ def test_intersection_count_against_plain(dev):
     assert torch.equal(got.cpu(), segsum.binned_sum_cols_batched_chunked(
         ones.cpu(), bins.cpu(), 257 * 257))
     assert float(got.sum()) == 2 * 540 * 540
+
+
+def _virtual_tiles(dev, n_traps=12, size=117, seed=8):
+    """The BABY overlap path's virtual tiles: each (trap, layer) of 3 layers
+    is one 117 x 117 image (label k in layer k % 3, relabelled 1..n), many
+    layers empty; values like fluorescence, a NaN in one cell."""
+    from aliby_tpu_torch.test_data import render_cells
+
+    rng = np.random.default_rng(seed)
+    layers = []
+    for t in range(n_traps):
+        _, _, lab = render_cells(size, int(rng.integers(0, 3)), rng)
+        for s in range(3):
+            layer = np.where((lab > 0) & (lab % 3 == s), lab, 0)
+            ids = np.unique(layer)[1:]
+            seq = np.zeros(int(lab.max()) + 1, np.int32)
+            seq[ids] = np.arange(1, len(ids) + 1)
+            layers.append(seq[layer])
+    labels = torch.from_numpy(np.stack(layers)).to(dev)
+    vals = torch.from_numpy(rng.normal(2000, 300, labels.shape + (4,)).astype(np.float32)).to(dev)
+    vals[0, 50, 50, 1] = float("nan")
+    return labels, vals
+
+
+def test_kernels_at_the_virtual_tile_shape(dev):
+    """Kernels 3-5 at the overlap path's (3 x traps, 117 x 117) shape with
+    empty layers: sums bit-equal to the kernel's order on the CPU, min/max
+    equal to plain (NaN positions equal), the lookup bit-equal to plain;
+    one launch a call for min/max and the lookup."""
+    labels, vals = _virtual_tiles(dev)
+    assert (labels.reshape(labels.shape[0], -1).amax(dim=1) == 0).any()
+    n_bins = int(labels.max()) + 1
+    got = segsum.binned_sum_cols_batched(vals, labels, n_bins)
+    assert _same_bits(got, segsum.binned_sum_cols_batched_chunked(vals.cpu(), labels.cpu(),
+                                                                  n_bins))
+    before = segsum.binned_minmax_batched.launches
+    mn, mx = segsum.binned_minmax_batched(vals[..., :2], labels, n_bins)
+    assert segsum.binned_minmax_batched.launches == before + 1
+    pmn, pmx = segsum.binned_minmax_batched_plain(vals[..., :2], labels, n_bins)
+    assert _equal_with_nan(mn, pmn) and _equal_with_nan(mx, pmx)
+    table = vals[:, :n_bins, 0, :2].contiguous()
+    before = segsum.table_lookup_batched.launches
+    out = segsum.table_lookup_batched(table, labels)
+    assert segsum.table_lookup_batched.launches == before + 1
+    assert _same_bits(out, segsum.table_lookup_batched_plain(table, labels))
+
+
+def test_threshold_segmenter_and_cellfuns_on_the_card(dev):
+    """The threshold segmenter gives the CPU's labels on the card (its blur,
+    Otsu and EDT are elementwise in a fixed order), and the cellfuns
+    metrics over them the CPU's within ``extract.tolerances`` (the CPU's
+    sums in the kernel's order)."""
+    from aliby_tpu_torch.extract import cellfuns
+    from aliby_tpu_torch.extract.tolerances import beyond_tolerance
+    from aliby_tpu_torch.models.segment import threshold_segment
+    from aliby_tpu_torch.test_data import yeast_timelapse
+
+    imgs = torch.from_numpy(yeast_timelapse(41, T=3, size=117)[:, 1].max(axis=1)
+                            .astype(np.float32))
+    got = threshold_segment(imgs.to(dev), threshold_scale=0.6)
+    want = threshold_segment(imgs, threshold_scale=0.6)
+    assert torch.equal(got.cpu(), want) and int(want.max()) > 3
+    plain = segsum.binned_sum_cols_batched_plain
+    segsum.binned_sum_cols_batched_plain = segsum.binned_sum_cols_batched_chunked
+    try:
+        cpu = {**cellfuns.mask_metrics(want, 32), **cellfuns.pixel_metrics(want, imgs, 32)}
+    finally:
+        segsum.binned_sum_cols_batched_plain = plain
+    card = {**cellfuns.mask_metrics(got, 32), **cellfuns.pixel_metrics(got, imgs.to(dev), 32)}
+    for k, w in cpu.items():
+        w = w.numpy().astype(np.float64)
+        bad = beyond_tolerance(k, card[k].cpu().numpy(), w,
+                               lambda other: cpu.get(other, cpu[k]).numpy().astype(np.float64))
+        assert not bad.any(), k

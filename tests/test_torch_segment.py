@@ -113,12 +113,12 @@ def test_padding_and_uint16():
 
 
 def test_dispatch_kinds_and_devices():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.dispatch_segmenter("threshold")
+    assert S.dispatch_segmenter("threshold", device="cpu").device == torch.device("cpu")
+    assert callable(S.dispatch_segmenter("baby", device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.dispatch_segmenter("nahual_cellpose")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.dispatch_segmenter("baby")
+        S.dispatch_segmenter("spots")
     assert S.dispatch_segmenter("cellpose", three_d=True, device="cpu").three_d
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         S.CellposeTorch(pretrained_path="model_torch.pth", device="cpu")

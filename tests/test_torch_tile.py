@@ -3,7 +3,9 @@ on the scenarios of ``tests/test_tile.py``: the mono tile, drift tracking
 over timepoints (the host phase correlation, the drift records and the
 tile blocks, equal), median padding, and ``CropTiler``'s grid with each
 normalisation; equal arrays throughout. A ``tile_size`` on a ``Tiler``
-(trap detection) raises, naming its ROADMAP item.
+runs trap detection (``tests/test_torch_traps.py`` holds it on trap
+fields); on the yeast fixture, which has no traps, both packages give the
+same tiles.
 """
 
 import numpy as np
@@ -81,9 +83,14 @@ def test_crop_tiler_grid(flags):
 
 
 def test_trap_grid_is_not_ported():
-    img, _ = _images()
-    t = tiler.dispatch_tiler(tile_size=117, track_drift=False)(img)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        t.run_tp(0)
+    """Trap detection at tile size 117 on the yeast fixture (no traps): the
+    port's tiles (detected or the centred fallback) are the JAX package's."""
+    img, jimg = _images()
+    t = tiler.dispatch_tiler(tile_size=117, track_drift=False, device="cpu")(img)
+    jt = jax_tiler.dispatch_tiler(tile_size=117, track_drift=False)(jimg)
+    got, want = t.run_tp(0), jt.run_tp(0)
+    _same_records(got["drift"], want["drift"])
+    np.testing.assert_array_equal(got["pixels"], want["pixels"])
+    assert t.n_tiles == jt.n_tiles >= 1
     params = tiler.TilerParameters.default(tile_size=None)
     assert params.to_dict() == jax_tiler.TilerParameters.default(tile_size=None).to_dict()
