@@ -1,13 +1,15 @@
 """Standard pipeline-definition builder (counterpart of
 ``aliby_tpu/engine/builders.py``).
 
-Produces the pipeline dict: per-object ``segment_<obj>`` steps, one
-``extract_<obj>`` per object (sizeshape + per-channel feature tree), one
+Produces the pipeline dict: per-object ``segment_<obj>`` steps (local
+``cellpose``, or ``nahual_cellpose`` when ``nahual_addresses`` is given),
+one ``extract_<obj>`` per object (sizeshape + per-channel feature tree), one
 ``extractmulti_<obj>`` with per-channel-pair colocalisation, ``passed_data``
 wiring masks <- segment and pixels <- tile, ``passed_methods`` feeding the
 segmenters through ``("tile", "get_fczyx")``, and the default ``save`` of
-the segment steps. ``trackastra_parameters`` (with no address) attaches the
-in-process whole-movie linker as the ``track_global`` global step.
+the segment steps. ``trackastra_parameters`` alone attaches the in-process
+whole-movie linker as the ``track_global`` global step;
+``trackastra_address`` a model server's linker as ``nahual_trackastra``.
 """
 
 from __future__ import annotations
@@ -54,11 +56,6 @@ def build_pipeline_steps(
     segmenter_extra_kwargs: dict | None = None,
 ) -> dict:
     """Build the standard pipeline definition (no IO stamped yet)."""
-    if trackastra_address is not None:
-        raise NotImplementedError(
-            "a remote trackastra server needs the clients of net/ (ROADMAP queue 1, item 8); "
-            "trackastra_address=None selects the in-process linker"
-        )
     if channels_to_segment is None:
         channels_to_segment = {"nuclei": 1, "cell": 0}
     if channels_to_extract is None:
@@ -115,6 +112,7 @@ def build_pipeline_steps(
     }
     if steps_to_write is not None:
         pipeline["save"] = list(steps_to_write)
-    if trackastra_parameters is not None:
-        _attach_trackastra(pipeline, channels_to_segment, None, trackastra_parameters)
+    if trackastra_address is not None or trackastra_parameters is not None:
+        _attach_trackastra(pipeline, channels_to_segment, trackastra_address,
+                           trackastra_parameters)
     return pipeline

@@ -3,8 +3,8 @@
 ``pipe_builder_baby.py:16-108``).
 
 Hard-wired to the BABY segmenter family: the in-process equivalent, or
-the remote ``nahual_baby`` kind when ``baby_address`` is given (the remote
-clients are not ported: ROADMAP queue 1, item 8). No extractmulti steps;
+the remote ``nahual_baby`` kind (a model server's ``baby`` group) when
+``baby_address`` is given. No extractmulti steps;
 extraction runs the overlap path; segmenters receive pixels through
 ``passed_methods``.
 """

@@ -41,8 +41,6 @@ from aliby_tpu_torch.utils.timer import StepTimer
 
 logger = logging.getLogger("aliby_tpu_torch")
 
-_NET_ITEM = ("the remote clients and the embedder (net/, models/embedder.py: "
-             "ROADMAP queue 1, item 8)")
 METADATA_KEYS = [f"metadata_{k}" for k in ("tp", "tile", "object", "label")]
 
 
@@ -588,15 +586,25 @@ def _init_extract_multi(step_name: str, parameters: dict, device=None):
 
 
 def _init_embed(step_name: str, parameters: dict, device=None):
-    raise NotImplementedError(f"step {step_name!r}: {_NET_ITEM}")
+    """The in-process embedder (``models/embedder.py``) on ``device``."""
+    from aliby_tpu_torch.models.embedder import make_embedder
+
+    return make_embedder(device=device, **parameters)
 
 
 def _init_nahual_embed(step_name: str, parameters: dict, device=None):
-    raise NotImplementedError(f"step {step_name!r}: {_NET_ITEM}")
+    """A client of a model server's ``embed`` group (the model runs on the
+    server's device)."""
+    from aliby_tpu_torch.net.client import make_remote_embedder
+
+    return make_remote_embedder(**parameters)
 
 
 def _init_nahual_track(step_name: str, parameters: dict, device=None):
-    raise NotImplementedError(f"step {step_name!r}: {_NET_ITEM}")
+    """A client of a model server's ``trackastra`` group."""
+    from aliby_tpu_torch.net.client import make_remote_global_step
+
+    return make_remote_global_step("trackastra", **parameters)
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +641,7 @@ def finalize_position(state: dict, pipeline: dict, pipeline_name: str, output_pa
     Shared by the per-position runner above and the mesh runner
     (``parallel/pipeline_mesh.py``), which builds the states of many
     positions from batched device calls before finalizing each."""
+    import pyarrow as pa
     import pyarrow.parquet as pq
 
     output_path = Path(output_path)
@@ -661,6 +670,9 @@ def finalize_position(state: dict, pipeline: dict, pipeline_name: str, output_pa
                     continue
                 stacked = get_step_output(state["data"], fetchers, steps_dir=steps_dir)
                 result = gs_fn(stacked)
+                if isinstance(result, dict):  # numpy columns: the reference returns a table
+                    result = pa.Table.from_pydict({k: np.asarray(v).tolist()
+                                                   for k, v in result.items()})
                 post_results[feed_name] = result
                 if gs_name in (pipeline.get("save") or []):
                     write_parquet(result, output_path=output_path, subpath=gs_name,
@@ -681,9 +693,9 @@ def _attach_trackastra(
     trackastra_parameters: dict | None,
 ) -> None:
     """Wire a whole-movie tracking global step in place
-    (``pipe_core.py:579-612``). ``address=None`` selects the in-process
-    linker (``track.linker``); a remote server needs ``net/`` (the builder
-    refuses an address)."""
+    (``pipe_core.py:579-612``): ``address=None`` selects the in-process
+    linker (``track_global``, ``track.linker``), an address a model
+    server's ``trackastra`` group (``nahual_trackastra``, ``net/``)."""
     seg_steps = [f"segment_{obj}" for obj in channels_to_segment]
     for seg in seg_steps:
         if seg not in base_pipeline["save"]:

@@ -4,9 +4,10 @@
 Step-name-prefix dispatch (reference ``pipe.py:47-77``): ``tile*`` ->
 tiler, ``segment*`` -> segmenter, ``track_global`` -> the in-process
 whole-movie linker, ``track*`` -> tracker, ``extractmulti_*`` ->
-multi-channel tree, ``extract_*`` -> single-channel tree. ``embed*`` and
-``nahual_*`` raise (ROADMAP queue 1, item 8). Device steps run on
-``device`` (``cuda`` unless the caller passes ``device="cpu"``).
+multi-channel tree, ``extract_*`` -> single-channel tree, ``embed*`` ->
+the in-process embedder, ``nahual_embed*`` / ``nahual_track*`` -> clients
+of a model server. Device steps run on ``device`` (``cuda`` unless the
+caller passes ``device="cpu"``).
 """
 
 from __future__ import annotations

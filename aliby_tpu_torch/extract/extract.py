@@ -537,7 +537,7 @@ def extraction_columns(instructions_result) -> dict:
     if isinstance(instructions_result, FusedTreeResult):
         return instructions_result.columns()
     if isinstance(instructions_result, np.ndarray):
-        raise NotImplementedError("embedder outputs: models/embedder.py (ROADMAP queue 1, item 8)")
+        return _embedding_columns(instructions_result)
     rows: dict = {}
     metric_names: set = set()
     for inst, metrics in zip(*instructions_result, strict=True):
@@ -565,6 +565,18 @@ def extraction_columns(instructions_result) -> dict:
         missing = np.asarray([v is None for v in vals], bool)
         col = np.asarray([np.nan if v is None else v for v in vals], np.float64)
         cols[n] = np.ma.MaskedArray(col, mask=missing) if missing.any() else col
+    return cols
+
+
+def _embedding_columns(emb: np.ndarray) -> dict:
+    """An embedder's (F, dim) output: row r is ``tile`` r, ``label`` 0, and
+    ``X_<c>`` holds dimension c; the columns sorted by name, as the
+    reference's table sorts them (``X_0, X_1, X_10, ...``)."""
+    emb = np.asarray(emb)
+    n, dim = emb.shape
+    cols = {"tile": np.arange(n, dtype=np.int64), "label": np.zeros(n, np.int64)}
+    for name in (sorted(f"X_{c}" for c in range(dim)) if n else ()):
+        cols[name] = emb[:, int(name[2:])].astype(np.float64)
     return cols
 
 

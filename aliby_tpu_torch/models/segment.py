@@ -5,14 +5,20 @@
 leading T of size 1 is dropped) and ``masks`` is a list of per-tile 2-D
 uint16 label maps. Kinds, on ``cuda`` unless ``device="cpu"`` is passed:
 
-- ``cellpose``: percentile normalisation, the U-Net with the bundled
-  weights, and mask reconstruction; with ``three_d=True`` each z plane is
-  segmented and the planes are stitched;
+- ``cellpose``: percentile normalisation, the network (the U-Net with the
+  bundled weights, or the CPnet graph of a torch Cellpose checkpoint
+  passed as ``pretrained_path``) and mask reconstruction; with
+  ``three_d=True`` each z plane is segmented and the planes are stitched;
 - ``threshold``: Gaussian blur, Otsu, EDT-peak seeds and nearest-seed
   regions, connected components for seedless blobs, the size filter; all
   tiles of a call as one batch;
 - ``baby``: :mod:`aliby_tpu_torch.models.baby` (layered masks, tracking and
-  lineage) on a base segmenter.
+  lineage) on a base segmenter;
+- ``spots`` / ``spotiflow``: :mod:`aliby_tpu_torch.models.spots`;
+- ``nahual_<group>`` (``nahual_cellpose``, ``nahual_baby``,
+  ``nahual_spotiflow``, ...): a client of a model server
+  (:mod:`aliby_tpu_torch.net`) at ``address``; the model runs on the
+  server's device.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from aliby_tpu_torch.device import resolve_device
+from aliby_tpu_torch.models.cpnet import load_cellpose_checkpoint
 from aliby_tpu_torch.models.flows import _div, masks_from_flows
 from aliby_tpu_torch.models.unet import CellposeNet
 from aliby_tpu_torch.models.weights import (
@@ -144,8 +151,12 @@ def _pad_to_multiple(img: np.ndarray, m: int = 8):
 
 
 class CellposeTorch:
-    """Normalise + U-Net forward + flow reconstruction, with the weights
-    of the JAX package's flax checkpoints."""
+    """Normalise + network forward + flow reconstruction. The network is the
+    flagship U-Net with the weights of the JAX package's flax checkpoints,
+    or, for a torch Cellpose checkpoint (``.pt``/``.pth``, ``torch`` in the
+    file name, or ``model_kwargs={"arch": "cpnet"}``), the CPnet graph of
+    :mod:`aliby_tpu_torch.models.cpnet` (``model_kwargs``: ``nbase``,
+    ``nout``, ``sz``, ``dtype``)."""
 
     def __init__(
         self,
@@ -161,28 +172,31 @@ class CellposeTorch:
     ):
         model_kwargs = dict(model_kwargs or {})
         arch = model_kwargs.pop("arch", None)
-        if pretrained_path is not None and (
+        self.device = resolve_device(device)
+        torch_ckpt = pretrained_path is not None and (
             arch == "cpnet"
             or str(pretrained_path).endswith((".pt", ".pth"))
             or "torch" in Path(pretrained_path).name
-        ):
-            raise NotImplementedError(
-                "torch Cellpose checkpoints (models/cpnet.py) are not ported "
-                "yet: ROADMAP queue 1, item 8"
-            )
-        self.device = resolve_device(device)
-        self.model = CellposeNet(**model_kwargs)
-        path = pretrained_path or (BUNDLED_WEIGHTS if BUNDLED_WEIGHTS.exists() else None)
-        if path is not None:
-            self.model.load_state_dict(params_from_flax(read_flax_checkpoint(path)))
+        )
+        if torch_ckpt:
+            # a published torch Cellpose checkpoint: the CPnet graph
+            self.model = load_cellpose_checkpoint(pretrained_path, **model_kwargs)
         else:
-            warnings.warn(
-                "CellposeTorch running with untrained weights; pass "
-                "pretrained_path or bundle weights for real masks."
-            )
+            self.model = CellposeNet(**model_kwargs)
+            path = pretrained_path or (BUNDLED_WEIGHTS if BUNDLED_WEIGHTS.exists() else None)
+            if path is not None:
+                self.model.load_state_dict(params_from_flax(read_flax_checkpoint(path)))
+            else:
+                warnings.warn(
+                    "CellposeTorch running with untrained weights; pass "
+                    "pretrained_path or bundle weights for real masks."
+                )
         self.model.to(self.device).eval()
-        # 2 Euler steps, validated for the bundled/flax training pipeline
-        self.flow_iters = 2 if flow_iters is None else int(flow_iters)
+        # 2 Euler steps, validated for the bundled/flax training pipeline;
+        # torch Cellpose checkpoints keep the reference's conservative 8
+        if flow_iters is None:
+            flow_iters = 8 if torch_ckpt else 2
+        self.flow_iters = int(flow_iters)
         self.cellprob_threshold = float(cellprob_threshold)
         self.max_labels = int(max_labels)
         self.min_size = int(min_size)
@@ -202,7 +216,11 @@ class CellposeTorch:
         pad = (-B) % m
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        return torch.cat([self.model(x[i:i + m]) for i in range(0, B + pad, m)])[:B]
+        outs = []
+        for i in range(0, B + pad, m):
+            out = self.model(x[i:i + m])
+            outs.append(out[0] if isinstance(out, tuple) else out)  # CPnet: (out, style)
+        return torch.cat(outs)[:B]
 
     @torch.no_grad()
     def _segment_all(self, images: torch.Tensor) -> torch.Tensor:
@@ -332,12 +350,6 @@ def segment_grouped(segmenters, pixels) -> list[list[np.ndarray]]:
     return out
 
 
-_NOT_PORTED = {
-    "spots": "models/spots.py (ROADMAP queue 1, item 8)",
-    "spotiflow": "models/spots.py (ROADMAP queue 1, item 8)",
-}
-
-
 def dispatch_segmenter(kind: str = "cellpose", channel_to_segment: int = 0, **kwargs):
     if kind in ("cellpose", "cellpose_tpu"):
         return _make_cellpose_segmenter(channel_to_segment, **kwargs)
@@ -347,11 +359,13 @@ def dispatch_segmenter(kind: str = "cellpose", channel_to_segment: int = 0, **kw
         from aliby_tpu_torch.models.baby import make_baby_segmenter
 
         return make_baby_segmenter(channel_to_segment, **kwargs)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"segmenter kind {kind!r}: {_NOT_PORTED[kind]}")
+    if kind in ("spots", "spotiflow"):
+        from aliby_tpu_torch.models.spots import make_spot_segmenter
+
+        return make_spot_segmenter(channel_to_segment, **kwargs)
     if kind.startswith("nahual"):
-        raise NotImplementedError(
-            f"segmenter kind {kind!r}: the remote clients of net/ are not ported "
-            "(ROADMAP queue 1, item 8)"
-        )
+        from aliby_tpu_torch.net.client import make_remote_segmenter
+
+        kwargs.pop("device", None)  # the model runs where its server runs
+        return make_remote_segmenter(kind, channel_to_segment=channel_to_segment, **kwargs)
     raise ValueError(f"Unknown segmenter kind {kind!r}")

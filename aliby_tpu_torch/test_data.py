@@ -3,9 +3,20 @@ inputs without JAX: copies of ``aliby_tpu/test_data.render_cells``, of the
 bench's five-channel Cell Painting field builder, of the yeast time-lapse
 (``yeast_timelapse``, the ``yeast_zarr`` fixture's generator) and the
 budding-yeast movie, and a bright-field ALCATRAS-like trap field
-(``render_trap_field``, the renderer of ``tests/test_trap_hardening.py``)."""
+(``render_trap_field``, the renderer of ``tests/test_trap_hardening.py``).
+
+:func:`get_dataset_path` makes (once) the JAX package's Cell Painting
+fixtures with the same pixels: ``cellpainting_zarr`` (a zarr store of two
+CYX positions, written with the port's ``io.zarrlite``) and
+``crop_cellpainting_256`` (a TIFF directory, PIL imported where it is
+written), under the port's own cache directory
+(``$ALIBY_TPU_TORCH_FIXTURES``, else ``~/.cache/aliby_tpu_torch/fixtures``).
+"""
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
 
 import numpy as np
 
@@ -368,3 +379,147 @@ def yeast_trap_movie(T: int = 5, size: int = 1024, spacing: int = 160, trap: int
                                                                                  frame.shape)
                 out[t, c, z] = np.clip(img, 0, 65535).astype(np.uint16)
     return out, np.asarray(centres)
+
+
+# ---------------------------------------------------------------------------
+# the Cell Painting fixtures (``aliby_tpu/test_data.py``'s catalogue)
+# ---------------------------------------------------------------------------
+
+CP_CHANNELS = {"DNA": 0, "ER": 1, "RNA": 2, "AGP": 3, "Mito": 4}
+
+DATASETS = {
+    "crop_cellpainting_256": {
+        "name": "crop_cellpainting_256",
+        "regex": r".*__([A-Z][0-9]{2})__([0-9])__([A-Za-z]+)\.tif",
+        "capture_order": "WFC",
+        "channels": dict(CP_CHANNELS),
+        "kind": "tiff_dir",
+    },
+    "cellpainting_zarr": {
+        "name": "cellpainting_zarr",
+        "capture_order": "CYX",
+        "channels": dict(CP_CHANNELS),
+        "kind": "zarr",
+    },
+}
+
+
+def fixtures_root() -> Path:
+    root = os.environ.get("ALIBY_TPU_TORCH_FIXTURES")
+    if root:
+        return Path(root)
+    return Path.home() / ".cache" / "aliby_tpu_torch" / "fixtures"
+
+
+def _channel_stack(size: int, n_cells: int, seed: int, n_channels: int = 5):
+    """Stack of channels derived from one rendered field (uint16)."""
+    rng = np.random.default_rng(seed)
+    cells, nuclei, labels = render_cells(size, n_cells, rng)
+    ring = np.clip(cells - nuclei, 0, None)
+    per_channel = [nuclei, ring, 0.5 * nuclei + 0.5 * cells, cells, ring * 0.8 + 0.2 * cells]
+    out = np.stack([_to_uint16(per_channel[c % 5], rng) for c in range(n_channels)])
+    return out, labels
+
+
+def _build_crop_cellpainting_256(root: Path) -> None:
+    from PIL import Image
+
+    for wi, well in enumerate(["A01"]):
+        for field in [1]:
+            stack, _ = _channel_stack(256, 24, seed=100 + wi * 10 + field)
+            for ch_name, ch_idx in CP_CHANNELS.items():
+                Image.fromarray(stack[ch_idx]).save(
+                    str(root / f"plate1__{well}__{field}__{ch_name}.tif"))
+
+
+def _build_cellpainting_zarr(root: Path) -> None:
+    from aliby_tpu_torch.io import zarrlite
+
+    for wi, well in enumerate(["A01", "B02"]):
+        stack, _ = _channel_stack(256, 24, seed=100 + wi * 10 + 1)
+        zarrlite.write_array(root / well, stack, chunks=(1, 256, 256))
+
+
+_BUILDERS = {
+    "crop_cellpainting_256": _build_crop_cellpainting_256,
+    "cellpainting_zarr": _build_cellpainting_zarr,
+}
+
+
+def get_dataset(name: str) -> dict:
+    if name not in DATASETS:
+        raise KeyError(f"Unknown dataset {name!r}; known: {sorted(DATASETS)}")
+    return dict(DATASETS[name])
+
+
+def get_dataset_path(name: str) -> Path:
+    """Generate (once) and return the root path of a synthetic dataset."""
+    entry = get_dataset(name)
+    root = fixtures_root() / entry["name"]
+    marker = root / ".complete"
+    if not marker.exists():
+        root.mkdir(parents=True, exist_ok=True)
+        _BUILDERS[name](root)
+        marker.write_text("ok")
+    return root
+
+
+# ---------------------------------------------------------------------------
+# seeded Cellpose checkpoints
+# ---------------------------------------------------------------------------
+
+# the head of a seeded CPnet: its 1x1 conv scaled by HEAD_GAIN, then its
+# bias shifted so that, on a probe Cell Painting field, the flows average 0
+# and the cell logit averages HEAD_LIFT: the output varies across a field
+# and mask reconstruction finds objects (~200 a 256^2 field at the cyto
+# width without the flow-error QC, a few with it: random flows fail the QC)
+HEAD_GAIN = 20.0
+HEAD_LIFT = 1.75
+
+
+def cpnet_state_dict(seed: int = 0, nbase=(2, 32, 64, 128, 256), nout: int = 3,
+                     sz: int = 3) -> dict:
+    """A torch Cellpose ``state_dict`` in the published key layout, made
+    from ``seed`` with numpy: convolutions and Dense layers uniform in
+    +-1/sqrt(fan_in) (PyTorch's default initialisation), BatchNorm running
+    means N(0, 0.3) and variances U(0.5, 1.5) (scale 1, shift 0), and the
+    head scaled by ``HEAD_GAIN`` and centred on a probe field (``HEAD_LIFT``).
+    Tensors on the CPU."""
+    import torch
+
+    from aliby_tpu_torch.models.cpnet import CPnet
+
+    rng = np.random.default_rng(seed)
+    keys = CPnet(nbase=nbase, nout=nout, sz=sz).state_dict()
+    sd = {}
+    for k, t in keys.items():
+        shape = tuple(t.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros((), dtype=torch.int64)
+            continue
+        if k.endswith("running_mean"):
+            v = rng.normal(0.0, 0.3, shape)
+        elif k.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) >= 2 or k.endswith("bias") and k[:-4] + "weight" in keys \
+                and keys[k[:-4] + "weight"].dim() >= 2:
+            w = keys[k[:-4] + "weight"] if k.endswith("bias") else t
+            bound = 1.0 / np.sqrt(int(np.prod(w.shape[1:])))
+            v = rng.uniform(-bound, bound, shape)
+        else:  # BatchNorm scale and shift
+            v = np.ones(shape) if k.endswith("weight") else np.zeros(shape)
+        sd[k] = torch.from_numpy(np.asarray(v, np.float32))
+    sd["output.2.weight"] *= HEAD_GAIN
+    sd["output.2.bias"] *= HEAD_GAIN
+    model = CPnet(nbase=nbase, nout=nout, sz=sz)
+    model.load_state_dict(sd)
+    probe = cellpainting_fields(1, 64, seed=7)[0][:, [3, 0], 0].astype(np.float32)
+    x = torch.from_numpy(probe).permute(0, 2, 3, 1)
+    lo = torch.quantile(x.reshape(-1, 2), 0.01, dim=0)
+    hi = torch.quantile(x.reshape(-1, 2), 0.99, dim=0)
+    with torch.no_grad():
+        out, _ = model(((x - lo) / (hi - lo)).float())
+    shift = -out.reshape(-1, nout).mean(dim=0)
+    shift[min(2, nout - 1)] += HEAD_LIFT
+    sd["output.2.bias"] = sd["output.2.bias"] + shift
+    return sd

@@ -129,6 +129,30 @@ Phases, in order; any failure exits non-zero:
    (traps x 3 layers of 117^2, empty layers among them), recorded in (b):
    held to their plain versions (the sums to the kernel's order on the
    CPU) and timed, three more rows of the ``kernels`` line.
+7. the model zoo and the model server (slice 6): (a) a seeded Cellpose
+   checkpoint at the cyto width (``nbase`` (2, 32, 64, 128, 256),
+   ``test_data.cpnet_state_dict``, written with ``torch.save``) as the
+   default bank's ``pretrained_path``, through ``run_positions_mesh`` on 1
+   position x 3 tps of 1080^2 (``test_data.cellpainting_movie``): with the
+   flow-error QC on (the default; kernels 1-5 launched) and off
+   (``flow_threshold=None``: random weights leave few objects through the
+   QC; every field must keep labels); per-tp == movie == mesh == a second
+   mesh run (labels, profile columns, saves); the CPnet forward a 1080^2
+   image in f32 (cuDNN TF32 off inside, the global flag unchanged) and
+   bf16; card vs CPU labels on a 256^2 crop (QC on and off: bit-equal, or
+   equal counts and matched IoU >= 0.99) and the f32 forward within 2e-4 of
+   max(1, its scale). (b) Example 02: 4 positions x 5 channels x 1080^2 in a
+   zlib zarr store, crop tiles of 64, ``embed_cells`` (style, dim 64)
+   through the state path: two card runs the same bits, ``X_*`` columns
+   against the CPU's by the bf16 embedding rule (max |diff| <= 2e-3, mean
+   <= 2e-4), ms a position. (c) A
+   ``ModelServer`` on ``ipc://`` in a thread, on the card; a client
+   pipeline of ``nahual_cellpose``, ``nahual_spotiflow``, ``nahual_embed``
+   and the ``nahual_trackastra`` global step over the 3 tps: kernels 1-3
+   launched inside the server; masks, embeddings and tracks columns equal
+   to the same models in process on the card; round trip and bytes a
+   request. (d) ``detect_spots`` + ``paint_spots`` on 16 frames of 1080^2:
+   the card's coordinates, radii and labels equal to the CPU's; ms a frame.
    Each phase prints its seconds.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -144,6 +168,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -182,6 +207,11 @@ REPLACES = {
     "binned_sum_cols_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:234",
     "binned_minmax_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:302",
+    "successor_prop (CPnet mesh)": "aliby_tpu/ops/pallas_stencil.py:115",
+    "diffuse_heat (CPnet mesh)": "aliby_tpu/ops/pallas_stencil.py:182",
+    "binned_sum_cols_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:234",
+    "binned_minmax_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:251",
+    "table_lookup_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:302",
 }
 SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
 DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
@@ -1063,18 +1093,20 @@ def fused_stage_breakdown(step, pixels, engines, reps: int = 5) -> None:
         f"{k} {v:.2f} ms ({100 * v / total:.0f}%)" for k, v in med.items()))
 
 
-def device_share(fn, what="one batch", warmup=True) -> dict | None:
+def device_share(fn, what="one batch", warmup=True, host_ops=True) -> dict | None:
     """Device-busy share of one run of ``fn`` (after a warm-up run unless
     ``warmup`` is False) and its top kernels, from torch.profiler (CUDA
     kernel self time over wall time); None when the profiler saw no CUDA
-    kernels."""
+    kernels. ``host_ops=False`` records the card's activity alone (the
+    host's op events of a ~50k-kernel window take ~20 s to process)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
         fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -2085,6 +2117,483 @@ def yeast_phase(dev) -> dict:
     return rows
 
 
+
+# ------------------------------------------------------------------ phase 7
+ZOO_SIZE, ZOO_TPS, ZOO_CHUNK, ZOO_CROP = 1080, 3, 3, 256
+EMBED_POS, EMBED_TILE, EMBED_DIM = 4, 64, 64
+SPOT_FRAMES = 16
+ZOO_MIN_IOU = 0.99  # card vs CPU labels where not bit-equal: equal counts, matched IoU
+CPNET_MESH = " (CPnet mesh)"
+
+
+def zoo_pipeline(checkpoint: str, ntps: int, qc: bool) -> dict:
+    """Phase 7 (a): the default bank on a CPnet engine (a torch checkpoint
+    at the cyto width), mono tile, compiled, the segment steps saved; the
+    flow-error QC on or off."""
+    from aliby_tpu_torch.engine.builders import build_pipeline_steps
+
+    seg = {"pretrained_path": checkpoint}
+    if not qc:
+        seg["flow_threshold"] = None
+    pipeline = build_pipeline_steps(**DEFAULT_BANK, segmenter_extra_kwargs=seg)
+    pipeline.update(ntps=ntps, compiled=True)
+    return pipeline
+
+
+def labels_of(state: dict, steps) -> np.ndarray:
+    """(steps, T, F, Y, X) label maps of a state's segment steps."""
+    return np.stack([np.stack([np.stack([np.asarray(m) for m in tp])
+                               for tp in state["data"][s]]) for s in steps])
+
+
+def same_labels_or_iou(got: list, want: list, what: str) -> str:
+    """Card vs CPU label maps: bit-equal, or equal object counts and matched
+    IoU >= ``ZOO_MIN_IOU`` both ways (the rule for a flow bit that moves a
+    pixel across a threshold)."""
+    worst, n_equal = 1.0, 0
+    for i, (x, y) in enumerate(zip(got, want)):
+        if np.array_equal(x, y):
+            n_equal += 1
+            continue
+        iou = min(matched_iou(x, y), matched_iou(y, x)) if x.max() or y.max() else 1.0
+        worst = min(worst, iou)
+        if x.max() != y.max() or iou < ZOO_MIN_IOU:
+            raise AssertionError(f"{what} {i}: card {x.max()} objects, CPU {y.max()}, matched "
+                                 f"IoU {iou:.4f}")
+    return f"{n_equal}/{len(got)} bit-equal" + ("" if n_equal == len(got)
+                                                 else f", worst matched IoU {worst:.6f}")
+
+
+def zoo_cpnet(dev, tmp, positions, movie, wrappers) -> dict:
+    """Phase 7 (a): CPnet through the production runner."""
+    from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
+    from aliby_tpu_torch.extract import reductions
+    from aliby_tpu_torch.extract.tolerances import within_model_tolerance
+    from aliby_tpu_torch.models import flows
+    from aliby_tpu_torch.models.cpnet import load_cellpose_checkpoint
+    from aliby_tpu_torch.models.segment import CellposeTorch, _normalize_percentile
+    from aliby_tpu_torch.parallel.pipeline_mesh import run_positions_mesh_states
+    from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
+    from aliby_tpu_torch.pipe import init_step
+    from aliby_tpu_torch.test_data import cpnet_state_dict
+
+    checkpoint = os.path.join(tmp, "cyto_seeded.pth")
+    torch.save(cpnet_state_dict(0), checkpoint)
+    segs = [f"segment_{o}" for o in DEFAULT_BANK["channels_to_segment"]]
+    key = positions[0]["key"]
+    stats = {}
+
+    def counted(what, fn, required):
+        for w in wrappers.values():
+            w.launches = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        t = time.perf_counter() - t
+        launches = {k: w.launches for k, w in wrappers.items()}
+        missing = [k for k in required if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"(a) {what}: kernels {missing} not launched ({launches})")
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[zoo] (a) {what}: {ZOO_TPS} tps in {t:.2f} s ({t / ZOO_TPS * 1e3:.1f} ms a tp), "
+            f"peak device memory {gb:.3f} GB; launches {launches}")
+        return out, {"s": t, "ms_per_tp": t / ZOO_TPS * 1e3, "peak_gb": gb, "launches": launches}
+
+    def per_position(pipeline, movie_mode, tag):
+        pipe = stamp_image_kwargs(pipeline, positions[0], capture_order="TCZYX")
+        pipe["movie"] = movie_mode
+        if movie_mode:
+            pipe["movie_chunk"] = ZOO_CHUNK
+        return pipe, run_pipeline_return_state(pipe, os.path.join(tmp, tag, key), init_step,
+                                               device=dev)
+
+    def mesh(pipeline, tag):
+        entries, _ = run_positions_mesh_states(pipeline, positions, os.path.join(tmp, tag),
+                                               capture_order="TCZYX", device=dev,
+                                               chunk=ZOO_CHUNK)
+        return entries[0]["pipeline"], entries[0]["state"]
+
+    # kernels 1-5 at the mesh call's shapes: the stencils and the QC sums of
+    # its 6 images (3 tps x 2 objects), a default-bank min/max and lookup
+    recs = {"successor_prop": Recorder(flows, "successor_prop"),
+            "diffuse_heat": Recorder(flows, "diffuse_heat"),
+            "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched",
+                                                lambda v, b, n: n == 257 and v.shape[-1] == 3),
+            "binned_minmax_batched": Recorder(reductions, "binned_minmax_batched"),
+            "table_lookup_batched": Recorder(reductions, "table_lookup_batched")}
+    runs = {}
+    for qc in (True, False):
+        tag = "qc" if qc else "noqc"
+        base = zoo_pipeline(checkpoint, ZOO_TPS, qc)
+        with recording(recs.values() if qc else ()):
+            (pipe, st), stats[f"mesh_qc_{'on' if qc else 'off'}"] = counted(
+                f"run_positions_mesh, 1 position, QC {'on' if qc else 'off'}",
+                lambda: mesh(base, f"c_{tag}"),
+                # the flow-error QC alone runs diffuse_heat (masks_to_flows)
+                [k for k in wrappers if qc or k != "diffuse_heat"])
+        lab = labels_of(st, segs)
+        per_field = lab.reshape(len(segs), ZOO_TPS, -1).max(axis=2)
+        log(f"[zoo] (a) QC {'on' if qc else 'off'}: labels a field (nuclei, cell; by tp) "
+            f"{per_field.tolist()}")
+        if not qc and per_field.min() <= 0:
+            raise AssertionError(f"(a) a field has no labels with the QC off: {per_field}")
+        runs[tag] = (base, pipe, st, lab)
+        stats[f"labels_qc_{'on' if qc else 'off'}"] = per_field.tolist()
+    base, pipe, st, lab = runs["noqc"]
+    cols = profile_columns(st, pipe)
+    if not len(cols.get("metadata_tile", ())):
+        raise AssertionError("(a) no profile rows")
+    t_paths = time.perf_counter()
+    for what, (p, s) in (("per-tp", per_position(base, False, "a")),
+                         ("movie", per_position(base, True, "b")),
+                         ("mesh again", mesh(base, "c_again"))):
+        if not np.array_equal(labels_of(s, segs), lab):
+            raise AssertionError(f"(a) labels of the {what} path != the mesh's")
+        if not same_columns(profile_columns(s, p), cols):
+            raise AssertionError(f"(a) profile columns of the {what} path != the mesh's")
+    log(f"[zoo] (a) the per-tp, movie and second mesh runs: {time.perf_counter() - t_paths:.1f} s")
+    n_saves = same_saves(os.path.join(tmp, "a", key), os.path.join(tmp, "c_noqc", "steps", key))
+    n_saves += same_saves(os.path.join(tmp, "b", key), os.path.join(tmp, "c_again", "steps", key))
+    log(f"[zoo] (a) per-tp == movie == mesh == mesh again (QC off): labels, {len(cols)} profile "
+        f"columns x {len(cols['metadata_tile'])} rows (NaN equal), {n_saves} saved .npz")
+    t_idle = time.perf_counter()  # one tp: the profiler's table of ~50k kernels takes long
+    stats["idle"] = device_share(lambda: mesh(zoo_pipeline(checkpoint, 1, False), "c_idle"),
+                                 f"the CPnet mesh path, 1 tp of {ZOO_SIZE}^2", warmup=False,
+                                 host_ops=False)
+    log(f"[zoo] (a) the profiled mesh run: {time.perf_counter() - t_idle:.1f} s")
+
+    # the forward alone: f32 (cuDNN TF32 off inside, the caller's flag kept) and bf16
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    field = movie[0, 0, [0, 3], 0].astype(np.float32)  # (2, Y, X): a nuclei and a cell image
+    imgs = np.stack([field, np.zeros_like(field)], axis=1)  # (2, 2, Y, X), no second channel
+    x = _normalize_percentile(torch.from_numpy(imgs).to(dev).permute(0, 2, 3, 1))[:1]
+    f32 = load_cellpose_checkpoint(checkpoint).to(dev)
+    bf16 = load_cellpose_checkpoint(checkpoint, dtype=torch.bfloat16).to(dev)
+    with torch.no_grad():
+        ms_f32, ms_bf16 = cuda_ms_turns([lambda: f32(x), lambda: bf16(x)], reps=7)
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the CPnet forward changed torch.backends.cudnn.allow_tf32")
+    torch.backends.cudnn.allow_tf32 = tf32
+    stats.update(forward_ms_f32=ms_f32, forward_ms_bf16=ms_bf16)
+    log(f"[zoo] (a) CPnet forward at nbase (2, 32, 64, 128, 256), one {ZOO_SIZE}^2 image: f32 "
+        f"{ms_f32:.2f} ms, bf16 {ms_bf16:.2f} ms (CUDA events, median of 7)")
+
+    # the card against the CPU on a crop: labels, QC on and off; the f32 forward
+    crop = np.ascontiguousarray(imgs[1:, :, :ZOO_CROP, :ZOO_CROP])  # the cell image
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    for ft in (0.4, None):
+        kw = dict(pretrained_path=checkpoint, flow_threshold=ft)
+        card = CellposeTorch(device=dev, **kw).segment_tiles(crop)
+        cpu = CellposeTorch(device="cpu", **kw).segment_tiles(crop)
+        rule = same_labels_or_iou(card, cpu, f"(a) a {ZOO_CROP}^2 crop, QC {ft}, image")
+        log(f"[zoo] (a) card vs CPU labels, a {ZOO_CROP}^2 crop, flow_threshold {ft}: objects "
+            f"{[int(m.max()) for m in card]}, {rule}")
+    xc = _normalize_percentile(torch.from_numpy(crop).permute(0, 2, 3, 1))
+    with torch.no_grad():
+        out_card, style_card = f32(xc.to(dev))
+        out_cpu, style_cpu = load_cellpose_checkpoint(checkpoint)(xc)
+    torch.set_num_threads(threads)
+    out_card, out_cpu = out_card.cpu().numpy(), out_cpu.numpy()
+    err = float(np.abs(out_card - out_cpu).max())
+    if not (within_model_tolerance(out_card, out_cpu, "cpnet")
+            and within_model_tolerance(style_card.cpu().numpy(), style_cpu.numpy(), "cpnet")):
+        raise AssertionError(f"(a) f32 forward, card vs CPU: max abs err {err} (scale "
+                             f"{np.abs(out_cpu).max()})")
+    stats["forward_card_vs_cpu_max_abs_err"] = err
+    log(f"[zoo] (a) f32 forward card vs CPU on the crop: max abs err {err:.3g} of scale "
+        f"{np.abs(out_cpu).max():.3g} (within 2e-4 of max(1, scale)); CPU checks "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # f32 forwards on four threads at once, as run_positions' workers and the
+    # server's connections run them: each the bits of its run alone, TF32
+    # off for all of them, the caller's flag afterwards
+    crops = [_normalize_percentile(torch.from_numpy(np.ascontiguousarray(
+        imgs[1:, :, r:r + ZOO_CROP, c:c + ZOO_CROP])).permute(0, 2, 3, 1)).to(dev)
+        for r in (0, ZOO_CROP) for c in (0, ZOO_CROP)]
+    torch.backends.cudnn.allow_tf32 = True
+    with torch.no_grad():
+        alone = [f32(c)[0] for c in crops]
+    outs, errors = {}, []
+    start = threading.Barrier(len(crops))
+
+    def forwards(i):
+        try:
+            start.wait(60)
+            for r in range(3):
+                with torch.no_grad():
+                    outs[i, r] = f32(crops[i])[0]
+            torch.cuda.current_stream().synchronize()
+        except Exception as e:  # raised below, on the phase's thread
+            errors.append(e)
+
+    workers = [threading.Thread(target=forwards, args=(i,)) for i in range(len(crops))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(300)
+    if errors:
+        raise errors[0]
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("(a) f32 forwards on threads left torch.backends.cudnn.allow_tf32 "
+                             "changed")
+    torch.backends.cudnn.allow_tf32 = tf32
+    differ = [k for k, o in outs.items() if not torch.equal(o, alone[k[0]])]
+    if len(outs) != 3 * len(crops) or differ:
+        raise AssertionError(f"(a) f32 forwards on threads differ from the forward alone: {differ}")
+    log(f"[zoo] (a) f32 forwards on {len(crops)} threads at once (3 each, {ZOO_CROP}^2 crops): "
+        f"the bits of the forward alone; the caller's TF32 flag kept")
+
+    missing = [k for k, r in recs.items() if r.args is None]
+    if missing:
+        raise AssertionError(f"(a) no call of {missing} was recorded in the QC-on mesh run")
+    log("[report] kernels 1-5 at the CPnet mesh call's shapes (launches: the QC-on mesh run):")
+    rows = {}
+    for name, row in measure_kernels({k: r.args for k, r in recs.items()},
+                                     stats["mesh_qc_on"]["launches"]).items():
+        row["name"] = name + CPNET_MESH
+        rows[name + CPNET_MESH] = row
+    return stats, rows
+
+
+def example02(store_pos: dict) -> dict:
+    from copy import deepcopy
+
+    pipeline = deepcopy({
+        "steps": {"tile": {"kind": "crop", "tile_size": EMBED_TILE, "track_drift": False,
+                           "standard_scale": True},
+                  "embed_cells": {"model": "style", "dim": EMBED_DIM}},
+        "passed_data": {"embed_cells": [("pixels", "tile")]},
+        "passed_methods": {}, "save": [], "save_interval": 1})
+    pipeline["steps"]["tile"]["image_kwargs"] = {
+        "source": {"key": store_pos["key"], "path": store_pos["path"]}, "capture_order": "CYX"}
+    return pipeline
+
+
+def zoo_embeddings(dev, tmp) -> dict:
+    """Phase 7 (b): example 02 on the card, through the state path."""
+    from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
+    from aliby_tpu_torch.extract.tolerances import within_model_tolerance
+    from aliby_tpu_torch.io import zarrlite
+    from aliby_tpu_torch.io.dataset import DatasetZarr
+    from aliby_tpu_torch.pipe import init_step
+    from aliby_tpu_torch.test_data import cellpainting_large_field
+
+    store = os.path.join(tmp, "embed.zarr")
+    for p in range(EMBED_POS):
+        field = cellpainting_large_field(ZOO_SIZE, seed=31 + p)[0, :, 0]  # (C, Y, X)
+        zarrlite.write_array(os.path.join(store, f"pos{p}"),
+                             np.clip(np.rint(field * 4096), 0, 65535).astype(np.uint16),
+                             chunks=(1, ZOO_SIZE, ZOO_SIZE), compressor="zlib")
+    positions = DatasetZarr(store).get_position_ids()
+
+    def run(pos, device):
+        pipe = example02(pos)
+        return profile_columns(run_pipeline_return_state(pipe, None, init_step, device=device),
+                               pipe)
+
+    times, cols = [], []
+    for pos in positions:
+        sync()
+        t0 = time.perf_counter()
+        cols.append(run(pos, dev))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    x_cols = [c for c in cols[0] if c.startswith("X_")]
+    if len(x_cols) != EMBED_DIM or any(list(c) != list(cols[0]) for c in cols):
+        raise AssertionError(f"(b) {len(x_cols)} X columns; column sets differ")
+    again = run(positions[0], dev)
+    if not same_columns(again, cols[0]):
+        raise AssertionError("(b) two card runs of a position differ")
+    t0 = time.perf_counter()
+    cpu = run(positions[0], "cpu")
+    t_cpu = time.perf_counter() - t0
+    if [c for c in cpu] != list(cols[0]) or any(
+            not np.array_equal(cpu[c], cols[0][c]) for c in cpu if not c.startswith("X_")):
+        raise AssertionError("(b) card vs CPU: metadata or column names differ")
+    got = np.stack([cols[0][c] for c in x_cols])
+    want = np.stack([cpu[c] for c in x_cols])
+    diff = np.abs(got - want)
+    if not within_model_tolerance(got, want, "embed"):
+        raise AssertionError(f"(b) X columns card vs CPU beyond the bf16 embedding rule: max "
+                             f"abs err {diff.max()}, mean {diff.mean()}")
+    n_rows = len(cols[0]["metadata_tile"])
+    log(f"[zoo] (b) example 02: {EMBED_POS} positions x 5 channels x {ZOO_SIZE}^2 (zlib zarr), "
+        f"{n_rows} crops of {EMBED_TILE} a position, X_0..X_{EMBED_DIM - 1}: ms a position "
+        f"{[round(t, 1) for t in times]} (the first builds the encoder); two card runs the same "
+        f"bits; card vs CPU max abs err {diff.max():.3g}, mean {diff.mean():.3g}, of scale "
+        f"{np.abs(want).max():.3g} (the bf16 embedding rule); CPU {t_cpu:.1f} s a position")
+    return {"ms_per_position": times, "crops": n_rows,
+            "card_vs_cpu_max_abs_err": float(diff.max()),
+            "card_vs_cpu_mean_abs_err": float(diff.mean())}
+
+
+def zoo_server(dev, tmp, positions, wrappers) -> dict:
+    """Phase 7 (c): a ModelServer on the card, a client pipeline on the host."""
+    from aliby_tpu_torch.engine.core import get_step_output, run_pipeline_return_state
+    from aliby_tpu_torch.engine.global_steps import dispatch_global_step
+    from aliby_tpu_torch.net import wire
+    from aliby_tpu_torch.net.server import ModelServer
+    from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
+    from aliby_tpu_torch.pipe import init_step
+
+    address = f"ipc://{tmp}/zoo.ipc"
+
+    def pipeline(remote: bool) -> dict:
+        def seg(kind, ch):
+            kw = {"kind": f"nahual_{kind}", "address": address} if remote else {"kind": kind}
+            return {"segmenter_kwargs": kw, "channel_to_segment": ch}
+
+        embed = "nahual_embed" if remote else "embed_cells"
+        steps = {"tile": {"tile_size": None},
+                 "segment_cell": seg("cellpose", 3),
+                 "segment_spots": seg("spotiflow" if remote else "spots", 0),
+                 embed: ({"address": address, "setup_params": {"dim": EMBED_DIM}} if remote
+                         else {"dim": EMBED_DIM})}
+        pipe = {"steps": steps, "passed_data": {embed: [("pixels", "tile")]},
+                "passed_methods": {"segment_cell": ("tile", "get_fczyx"),
+                                   "segment_spots": ("tile", "get_fczyx")},
+                "save": [], "ntps": ZOO_TPS}
+        return stamp_image_kwargs(pipe, positions[0], capture_order="TCZYX")
+
+    calls = []
+    call = wire.Client.call
+
+    def timed_call(self, op, **payload):
+        t0 = time.perf_counter()
+        result = call(self, op, **payload)
+        dt = time.perf_counter() - t0
+        calls.append((op, payload.get("model"), dt * 1e3,
+                      len(wire._encode({"op": op, **payload})),
+                      len(wire._encode({"result": result}))))
+        return result
+
+    server = ModelServer(address, device=dev).start()
+    wire.Client.call = timed_call
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        remote = run_pipeline_return_state(pipeline(True), None, init_step, device=dev)
+        tracks = dispatch_global_step("nahual_trackastra", address=address)(
+            get_step_output(remote["data"], ["segment_cell"]))
+        sync()
+        t_remote = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        wire.Client.call = call
+        server.stop()
+    for k in ("successor_prop", "diffuse_heat", "binned_sum_cols_batched"):
+        if launches[k] <= 0:
+            raise AssertionError(f"(c) {k} was not launched inside the server ({launches})")
+    local = run_pipeline_return_state(pipeline(False), None, init_step, device=dev)
+    local_tracks = dispatch_global_step("track_global", device=dev)(
+        get_step_output(local["data"], ["segment_cell"]))
+    for step in ("segment_cell", "segment_spots"):
+        got, want = labels_of(remote, [step]), labels_of(local, [step])
+        if not np.array_equal(got, want) or got.max() <= 0:
+            raise AssertionError(f"(c) {step}: the server's masks != in process (max "
+                                 f"{got.max()}, {want.max()})")
+    emb_r = np.stack(remote["data"]["nahual_embed"])
+    emb_l = np.stack(local["data"]["embed_cells"])
+    if emb_r.shape != (ZOO_TPS, 1, EMBED_DIM) or not np.array_equal(emb_r, emb_l):
+        raise AssertionError(f"(c) embeddings: the server's != in process ({emb_r.shape})")
+    if list(tracks) != list(local_tracks) or any(
+            not np.array_equal(tracks[k], local_tracks[k]) for k in tracks) \
+            or not len(tracks["track_id"]):
+        raise AssertionError("(c) tracks columns: the server's != in process")
+    per_op = collections.defaultdict(list)
+    for op, model, ms, sent, got in calls:
+        per_op[(op, model)].append((ms, sent, got))
+    summary = {f"{op} {model}": {"calls": len(v), "ms": statistics.median(x[0] for x in v),
+                                 "bytes_sent": statistics.median(x[1] for x in v),
+                                 "bytes_received": statistics.median(x[2] for x in v)}
+               for (op, model), v in per_op.items()}
+    for name, s in summary.items():
+        log(f"[zoo] (c) {name}: {s['calls']} calls, round trip {s['ms']:.1f} ms (median), "
+            f"{s['bytes_sent']:.0f} bytes sent, {s['bytes_received']:.0f} received a call")
+    objects = labels_of(remote, ["segment_cell"]).reshape(ZOO_TPS, -1).max(axis=1).tolist()
+    log(f"[zoo] (c) the client pipeline over {ZOO_TPS} tps of {ZOO_SIZE}^2 through the server "
+        f"({address}, one thread a connection): {t_remote:.2f} s; launches inside the server "
+        f"{launches}; masks (cells {objects} a tp, spots), embeddings and "
+        f"{len(tracks['track_id'])} track rows == the same models in process on the card")
+    return {"s": t_remote, "launches": launches, "calls": summary}
+
+
+def zoo_spots(dev, movie) -> dict:
+    """Phase 7 (d): the spot detector on 16 frames of 1080^2, card vs CPU."""
+    from aliby_tpu_torch.models.spots import detect_spots, paint_spots
+
+    frames = np.concatenate([movie[0, :, c, 0] for c in range(5)]
+                            + [movie[0, :1, 0, 0]]).astype(np.float32)[:SPOT_FRAMES]
+    x = torch.from_numpy(frames)
+
+    def run(t):
+        with torch.no_grad():
+            c, r, v = detect_spots(t)
+            return c, r, v, paint_spots(tuple(t.shape[1:]), c, r, v)
+
+    card = [a.cpu() for a in run(x.to(dev))]
+    ms = cuda_ms(lambda: run(x.to(dev)), reps=5) / SPOT_FRAMES
+    t0 = time.perf_counter()
+    cpu = run(x)
+    t_cpu = (time.perf_counter() - t0) * 1e3 / SPOT_FRAMES
+    c, r, v, lab = card
+    if not (torch.equal(v, cpu[2]) and torch.equal(c[v], cpu[0][cpu[2]])
+            and torch.equal(r[v], cpu[1][cpu[2]]) and torch.equal(lab, cpu[3])):
+        raise AssertionError("(d) spots: card != CPU (coordinates, radii or labels)")
+    n = v.sum(dim=1).tolist()
+    log(f"[zoo] (d) spots on {SPOT_FRAMES} frames of {ZOO_SIZE}^2: {ms:.2f} ms a frame on the "
+        f"card (H2D included; CUDA events, median of 5), CPU {t_cpu:.1f} ms a frame; spots a "
+        f"frame {n}; coordinates, radii and labels == the CPU's")
+    return {"ms_per_frame": ms, "cpu_ms_per_frame": t_cpu, "spots": n}
+
+
+def zoo_phase(dev) -> dict:
+    """Phase 7: the model zoo and the model server. Returns its numbers and
+    the kernel rows of kernels 1-5 at the CPnet mesh call's shapes."""
+    import tempfile
+
+    from aliby_tpu_torch.io import zarrlite
+    from aliby_tpu_torch.io.dataset import DatasetZarr
+    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.test_data import cellpainting_movie
+
+    wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
+                "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+                "binned_minmax_batched": segsum.binned_minmax_batched,
+                "table_lookup_batched": segsum.table_lookup_batched}
+    t0 = time.perf_counter()
+    movie = cellpainting_movie(1, ZOO_TPS, ZOO_SIZE, seed=19)
+    tmp = tempfile.TemporaryDirectory(prefix="aliby_zoo_")
+    store = os.path.join(tmp.name, "plate.zarr")
+    zarrlite.write_array(os.path.join(store, "pos0"), movie[0],
+                         chunks=(1, 1, 1, ZOO_SIZE, ZOO_SIZE), compressor="zlib")
+    positions = DatasetZarr(store).get_position_ids()
+    log(f"[zoo] 1 position x {ZOO_TPS} tps x 5 channels x {ZOO_SIZE}^2 uint16 written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    t = time.perf_counter()
+    out["cpnet"], rows = zoo_cpnet(dev, tmp.name, positions, movie, wrappers)
+    log(f"[zoo] (a) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["example02"] = zoo_embeddings(dev, tmp.name)
+    log(f"[zoo] (b) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["server"] = zoo_server(dev, tmp.name, positions, wrappers)
+    log(f"[zoo] (c) {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["spots"] = zoo_spots(dev, movie)
+    log(f"[zoo] (d) {time.perf_counter() - t:.1f} s")
+    tmp.cleanup()
+    return out, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2292,9 +2801,15 @@ def main() -> int:
     rows.update(yeast_phase(dev))
     phase_done("6 (yeast path)")
 
+    # ------------------------------------------------- 7 model zoo and server
+    zoo, zoo_rows = zoo_phase(dev)
+    rows.update(zoo_rows)
+    phase_done("7 (model zoo and server)")
+
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},
-                    "fused example-01": ex01_stats, "fused default bank": fused_stats}))
+                    "fused example-01": ex01_stats, "fused default bank": fused_stats,
+                    "zoo": zoo}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"kernels": [rows[name] for name in REPLACES]}), flush=True)

@@ -744,3 +744,148 @@ def test_threshold_segmenter_and_cellfuns_on_the_card(dev):
         bad = beyond_tolerance(k, card[k].cpu().numpy(), w,
                                lambda other: cpu.get(other, cpu[k]).numpy().astype(np.float64))
         assert not bad.any(), k
+
+
+def _cpnet_checkpoint(tmp_path, nbase=(2, 32, 64, 128, 256)):
+    from aliby_tpu_torch.test_data import cpnet_state_dict
+
+    path = tmp_path / "cyto_seeded.pth"
+    torch.save(cpnet_state_dict(0, nbase=nbase), path)
+    return path
+
+
+def test_cpnet_on_the_card_is_true_f32(dev, tmp_path):
+    """The f32 CPnet forward on the card (cuDNN TF32 off inside, the global
+    flag as the caller left it) within 2e-4 of max(1, scale) of the CPU's;
+    the cpnet segmenter's labels bit-equal to the CPU's, or equal counts
+    and matched IoU >= 0.99."""
+    from aliby_tpu_torch.extract.tolerances import within_model_tolerance
+    from aliby_tpu_torch.models.cpnet import load_cellpose_checkpoint
+    from aliby_tpu_torch.models.segment import CellposeTorch
+    from aliby_tpu_torch.test_data import cellpainting_fields
+    from test_dynamics_parity import matched_iou
+
+    path = _cpnet_checkpoint(tmp_path)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(0, 1, (2, 96, 128, 2))
+                         .astype(np.float32))
+    cpu = load_cellpose_checkpoint(path)
+    card = load_cellpose_checkpoint(path).to(dev)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            got, got_style = card(x.to(dev))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    with torch.no_grad():
+        want, want_style = cpu(x)
+    assert within_model_tolerance(got.cpu().numpy(), want.numpy(), "cpnet")
+    assert within_model_tolerance(got_style.cpu().numpy(), want_style.numpy(), "cpnet")
+    pix = np.concatenate(cellpainting_fields(2, 96, seed=7))
+    imgs = np.stack([pix[:, 3, 0], pix[:, 0, 0]], 1).astype(np.float32)
+    for ft in (0.4, None):
+        kw = dict(pretrained_path=path, flow_threshold=ft)
+        a = CellposeTorch(device=dev, **kw).segment_tiles(imgs)
+        b = CellposeTorch(device="cpu", **kw).segment_tiles(imgs)
+        for x_, y_ in zip(a, b):
+            if not np.array_equal(x_, y_):
+                assert x_.max() == y_.max()
+                assert min(matched_iou(x_, y_), matched_iou(y_, x_)) >= 0.99
+
+
+def test_cpnet_f32_on_several_threads(dev, tmp_path):
+    """f32 CPnet forwards and cpnet segmenters on four threads at once, as
+    ``run_positions``' workers and the server's connections run them: the
+    bits of a forward run alone, and the caller's TF32 flag afterwards."""
+    import threading
+
+    from aliby_tpu_torch.models.cpnet import load_cellpose_checkpoint
+    from aliby_tpu_torch.models.segment import CellposeTorch
+    from aliby_tpu_torch.test_data import cellpainting_fields
+
+    path = _cpnet_checkpoint(tmp_path)
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(rng.uniform(0, 1, (1, 256, 256, 2)).astype(np.float32)).to(dev)
+          for _ in range(4)]
+    pix = np.concatenate(cellpainting_fields(4, 128, seed=9))
+    imgs = np.stack([pix[:, 3, 0], pix[:, 0, 0]], 1).astype(np.float32)
+    model = load_cellpose_checkpoint(path).to(dev)
+    kw = dict(pretrained_path=path, flow_threshold=None)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            alone = [model(x)[0].cpu() for x in xs]
+        seg = CellposeTorch(device=dev, **kw)
+        labels = [seg.segment_tiles(imgs[i:i + 1])[0] for i in range(4)]
+        got, got_labels, errors = {}, {}, []
+        start = threading.Barrier(4)
+
+        def work(i):
+            try:
+                seg = CellposeTorch(device=dev, **kw)
+                start.wait(30)
+                for r in range(3):
+                    with torch.no_grad():
+                        got[i, r] = model(xs[i])[0].cpu()
+                    got_labels[i, r] = seg.segment_tiles(imgs[i:i + 1])[0]
+            except Exception as e:  # raised in the test's thread below
+                errors.append(e)
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not errors, errors
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    for (i, r), out in got.items():
+        assert torch.equal(out, alone[i]), (i, r)
+        assert np.array_equal(got_labels[i, r], labels[i]), (i, r)
+    assert len(got) == 12 and all(m.max() > 0 for m in labels)
+
+
+def test_spots_on_the_card_are_the_cpu_bits(dev):
+    from aliby_tpu_torch.models.spots import detect_spots, paint_spots
+    from aliby_tpu_torch.test_data import cellpainting_fields
+
+    frames = torch.from_numpy(np.concatenate(cellpainting_fields(3, 160, seed=5))[:, 0, 0]
+                              .astype(np.float32))
+    for kw in ({}, {"max_spots": 16}):
+        c, r, v = detect_spots(frames.to(dev), **kw)
+        lab = paint_spots((160, 160), c, r, v)
+        cc, rc, vc = detect_spots(frames, **kw)
+        assert torch.equal(v.cpu(), vc) and vc.sum() > 10
+        assert torch.equal(c.cpu()[vc], cc[vc]) and torch.equal(r.cpu()[vc], rc[vc])
+        assert torch.equal(lab.cpu(), paint_spots((160, 160), cc, rc, vc))
+
+
+def test_embedder_on_the_card(dev):
+    from aliby_tpu_torch.extract.tolerances import within_model_tolerance
+    from aliby_tpu_torch.models.embedder import make_embedder
+
+    tiles = np.random.default_rng(2).normal(100, 20, (6, 5, 2, 64, 64)).astype(np.float32)
+    embed = make_embedder(dim=64, device=dev)
+    got = embed(tiles)
+    assert np.array_equal(got, embed(tiles))
+    assert within_model_tolerance(got, make_embedder(dim=64, device="cpu")(tiles), "embed")
+
+
+def test_model_server_on_the_card(dev, tmp_path):
+    """A server on the card answers a client as the model does in process."""
+    from aliby_tpu_torch.models.segment import dispatch_segmenter
+    from aliby_tpu_torch.net.client import make_remote_segmenter
+    from aliby_tpu_torch.net.server import ModelServer
+    from aliby_tpu_torch.test_data import cellpainting_fields
+
+    pixels = np.concatenate(cellpainting_fields(2, 128, seed=3))
+    with ModelServer(f"ipc://{tmp_path}/card.ipc", device=dev) as server:
+        for kind in ("cellpose", "threshold", "spotiflow"):
+            remote = make_remote_segmenter(f"nahual_{kind}", channel_to_segment=3,
+                                           address=server.address)(pixels)
+            local = dispatch_segmenter("spots" if kind == "spotiflow" else kind, 3,
+                                       device=dev)(pixels)
+            assert len(remote) == 2 and all(np.array_equal(a, b) for a, b in zip(remote, local))

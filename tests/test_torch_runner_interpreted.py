@@ -99,8 +99,12 @@ def test_global_linker_matches_jax(tmp_path):
     assert masks.shape == (1, NTPS, 1, SIZE, SIZE)
     assert table.equals(jax_link_tracks(masks[0]))
     assert (tmp_path / "out" / "track_global" / "pos0_track_global_nuclei.parquet").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        build_pipeline_steps(trackastra_address="localhost:1")
+    remote = build_pipeline_steps(channels_to_segment={"nuclei": 0},
+                                  trackastra_address="tcp://localhost:1")
+    assert remote["global_steps"] == {"nahual_trackastra": {"address": "tcp://localhost:1",
+                                                            "parameters": {}}}
+    assert remote["global_passed_data"] == {
+        "nahual_trackastra_nuclei": ("from_disk:segment_nuclei",)}
 
 
 def test_the_default_device_never_falls_back(monkeypatch, tmp_path):

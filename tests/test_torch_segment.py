@@ -115,12 +115,11 @@ def test_padding_and_uint16():
 def test_dispatch_kinds_and_devices():
     assert S.dispatch_segmenter("threshold", device="cpu").device == torch.device("cpu")
     assert callable(S.dispatch_segmenter("baby", device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires an 'address'"):
         S.dispatch_segmenter("nahual_cellpose")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.dispatch_segmenter("spots")
+    assert S.dispatch_segmenter("spots", device="cpu").device == torch.device("cpu")
     assert S.dispatch_segmenter("cellpose", three_d=True, device="cpu").three_d
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="model_torch.pth"):
         S.CellposeTorch(pretrained_path="model_torch.pth", device="cpu")
     with pytest.raises(ValueError):
         S.dispatch_segmenter("no-such-kind")
