@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import torch
 
 
@@ -17,3 +20,36 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class HeldFlags:
+    """Process-wide backend flags (``torch.backends.cudnn``'s) held at the
+    given values while any thread is inside ``with flags():``. The flags are
+    the process's, not a thread's: the first thread in saves the values it
+    finds and sets the held ones, the last one out restores the saved ones,
+    under a lock. (A save-and-restore per call races: one thread's exit
+    restores the flags under another thread's work.)"""
+
+    def __init__(self, namespace, **values):
+        self.namespace = namespace
+        self.values = values
+        self._lock = threading.Lock()
+        self._users = 0
+        self._saved: dict = {}
+
+    @contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._users == 0:
+                self._saved = {k: getattr(self.namespace, k) for k in self.values}
+                for k, v in self.values.items():
+                    setattr(self.namespace, k, v)
+            self._users += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._users -= 1
+                if self._users == 0:
+                    for k, v in self._saved.items():
+                        setattr(self.namespace, k, v)

@@ -76,6 +76,18 @@ The model zoo (``models/cpnet.py``, ``models/embedder.py``,
   mean 9.3e-5 (example 02 on ``cellpainting_zarr``, port vs JAX); a 3%
   error in the channel mix reads max 1.6e-3 to 2.5e-3, mean 6.4e-4 to
   7.5e-4, and is caught by the mean.
+
+Training (``models/training.py``), f32, held with :func:`gradient_excess`:
+
+- the loss within rtol ``LOSS_RTOL``; each gradient tensor within
+  ``GRAD_RTOL`` (port vs JAX on the CPU) or ``GRAD_CARD_RTOL`` (the card,
+  TF32 off, vs the CPU) of its largest |value|. A tensor whose largest
+  |value| is under ``GRAD_FLOOR`` of the model's largest has a gradient of
+  0 but for rounding (a conv bias that a GroupNorm of one channel a group
+  removes): there the limit is ``GRAD_FLOOR_ATOL`` (``GRAD_CARD_FLOOR_ATOL``)
+  of the model's largest |value|. CPU readings against JAX: loss 8.3e-6,
+  gradients 1.4e-5 of the tensor's largest, rounding-only tensors 1.8e-7
+  of the model's largest (``tests/test_torch_training.py``).
 """
 
 from __future__ import annotations
@@ -102,6 +114,12 @@ EMBED_BF16_ATOL = 2e-3
 EMBED_BF16_MEAN_ATOL = 2e-4
 BF16_MAX_SHARE = 0.05
 BF16_MEAN_SHARE = 0.005
+LOSS_RTOL = 1e-4
+GRAD_RTOL = 1e-4
+GRAD_CARD_RTOL = 1e-3
+GRAD_FLOOR = 1e-4
+GRAD_FLOOR_ATOL = 1e-6
+GRAD_CARD_FLOOR_ATOL = 1e-5
 _FIRST_MOMENTS = frozenset(f"AreaShape_{kind}Moment_{i}_{j}"
                            for kind in ("Central", "Normalized") for i, j in ((0, 1), (1, 0)))
 
@@ -194,3 +212,24 @@ def within_model_tolerance(got: np.ndarray, want: np.ndarray, rule: str) -> bool
         return bool(diff.max(initial=0.0) <= EMBED_BF16_ATOL
                     and diff.mean() <= EMBED_BF16_MEAN_ATOL)
     raise ValueError(f"unknown rule {rule!r}")
+
+
+def gradient_excess(got: dict, want: dict, rtol: float = GRAD_RTOL,
+                    floor_atol: float = GRAD_FLOOR_ATOL) -> dict[str, tuple[float, bool]]:
+    """Per gradient tensor (``name -> array``, the same names), the largest
+    |got - want| over its limit, and whether the tensor is rounding only:
+    the limit is ``rtol`` times the tensor's largest |want|, or, under
+    ``GRAD_FLOOR`` of the model's largest |want|, ``floor_atol`` times the
+    model's largest. A ratio above 1 is beyond the tolerance."""
+    if set(got) != set(want):
+        raise ValueError(f"gradient names differ: {sorted(set(got) ^ set(want))[:4]}")
+    want = {k: np.asarray(v, np.float64) for k, v in want.items()}
+    g_max = max(float(np.abs(v).max(initial=0.0)) for v in want.values())
+    out = {}
+    for name, w in want.items():
+        scale = float(np.abs(w).max(initial=0.0))
+        floor = scale < GRAD_FLOOR * g_max
+        limit = floor_atol * g_max if floor else rtol * scale
+        err = float(np.abs(np.asarray(got[name], np.float64) - w).max(initial=0.0))
+        out[name] = (err / limit if limit > 0 else (0.0 if err == 0 else float("inf")), floor)
+    return out

@@ -26,8 +26,6 @@ workers, the server's connections) all run in f32.
 
 from __future__ import annotations
 
-import threading
-from contextlib import contextmanager
 from pathlib import Path
 from typing import Sequence
 
@@ -36,31 +34,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aliby_tpu_torch.device import HeldFlags
+
 CYTO_NBASE = (2, 32, 64, 128, 256)
 
-_TF32_LOCK = threading.Lock()
-_tf32_users = 0
-_tf32_saved = True
-
-
-@contextmanager
-def tf32_off():
-    """cuDNN's TF32 off while any thread is inside; the value that the first
-    thread in found is restored when the last one leaves."""
-    global _tf32_users, _tf32_saved
-    cudnn = torch.backends.cudnn
-    with _TF32_LOCK:
-        if _tf32_users == 0:
-            _tf32_saved = cudnn.allow_tf32
-            cudnn.allow_tf32 = False
-        _tf32_users += 1
-    try:
-        yield
-    finally:
-        with _TF32_LOCK:
-            _tf32_users -= 1
-            if _tf32_users == 0:
-                cudnn.allow_tf32 = _tf32_saved
+# cuDNN's TF32 off while any thread is inside ``with tf32_off():``; the value
+# that the first thread in found is restored when the last one leaves
+tf32_off = HeldFlags(torch.backends.cudnn, allow_tf32=False)
 
 
 def _batchconv(cin: int, cout: int, sz: int) -> nn.Sequential:

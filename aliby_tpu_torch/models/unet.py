@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from aliby_tpu_torch.device import resolve_device
+
 
 class GroupNorm(nn.Module):
     """Flax ``nn.GroupNorm(dtype=float32)``: f32 statistics and output."""
@@ -136,3 +138,43 @@ class CellposeNet(nn.Module):
 
         out = self.head(h.to(torch.float32))
         return out.permute(0, 2, 3, 1).to(torch.float32)
+
+
+# Flax's lecun_normal: a standard normal truncated at +-2, scaled so that
+# the truncated draw has variance 1 / fan_in (the constant is the std of
+# the standard normal truncated at +-2)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    fan_in = weight[0].numel()  # conv (O, I, kh, kw): kh kw I; Linear (out, in): in
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        weight.mul_(std)
+
+
+def init_params(seed: int, in_channels: int = 2, size: int = 64,
+                device: str | torch.device | None = None, **model_kwargs) -> CellposeNet:
+    """A :class:`CellposeNet` initialised as Flax initialises the JAX model
+    (``aliby_tpu/models/unet.py`` ``init_params``): conv and dense kernels
+    from ``lecun_normal``, zero biases, GroupNorm scale 1 and bias 0.
+
+    The draws come from a ``torch.Generator`` seeded by ``seed`` on the CPU,
+    so the bits depend on the seed alone (not the device) and the caller's
+    global RNG is untouched; they are not Flax's draws (the distribution
+    is). ``size`` is accepted for the JAX signature: parameter shapes do not
+    depend on it."""
+    del size
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):  # the constructors' own draws
+        model = CellposeNet(in_channels=in_channels, **model_kwargs)
+    gen = torch.Generator().manual_seed(int(seed))
+    for module in model.modules():
+        if isinstance(module, (Conv, nn.Linear)):
+            _lecun_normal_(module.weight, gen)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, GroupNorm):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+    return model.to(dev)

@@ -1,10 +1,12 @@
-"""Weights: a msgpack reader for Flax checkpoints and the Flax -> PyTorch
-parameter converter.
+"""Weights: a msgpack reader and writer for Flax checkpoints and the
+converters between Flax parameter trees and PyTorch ``state_dict``s.
 
 The reader covers what ``flax.serialization`` writes (maps, str, bin,
 ints, floats, arrays, and ext type 1 = ndarray, whose payload is itself a
-msgpack ``(shape, dtype name, buffer)``), so the bundled checkpoint loads
-without ``msgpack`` or ``flax``.
+msgpack ``(shape, dtype name, buffer)``), the writer what a parameter tree
+needs (maps of str keys, arrays), so checkpoints load and save without
+``msgpack`` or ``flax``; the writer gives the bytes of
+``flax.serialization.to_bytes`` (keys in each dict's own order).
 """
 
 from __future__ import annotations
@@ -169,3 +171,134 @@ def params_from_flax(tree: dict) -> dict[str, torch.Tensor]:
             raise KeyError(f"unexpected parameter {'/'.join(path)}")
         state[f"{mod}.{key}"] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+class _Writer:
+    """msgpack as ``msgpack.packb(..., use_bin_type=True)`` packs the types
+    of a Flax parameter tree (dicts, str keys, numpy arrays as
+    ``flax.serialization``'s ext type 1)."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def put(self, fmt: str, *values) -> None:
+        self.out += struct.pack(fmt, *values)
+
+    def _header(self, n: int, fix: int | None, fix_max: int, codes: tuple) -> None:
+        """A length header: the fix form below ``fix_max``, else the 8-,
+        16- or 32-bit form (``codes``; None where the type has none)."""
+        if fix is not None and n < fix_max:
+            self.put(">B", fix | n)
+            return
+        for code, fmt, limit in zip(codes, ("B", "H", "I"), (1 << 8, 1 << 16, 1 << 32)):
+            if code is not None and n < limit:
+                self.put(">B" + fmt, code, n)
+                return
+        raise ValueError(f"msgpack object too long ({n})")
+
+    def write(self, obj) -> None:
+        if isinstance(obj, int) and not isinstance(obj, bool) and 0 <= obj < 1 << 64:
+            if obj < 0x80:
+                self.put(">B", obj)
+            elif obj < 1 << 32:  # the shortest unsigned form
+                self._header(obj, None, 0, (0xCC, 0xCD, 0xCE))
+            else:
+                self.put(">BQ", 0xCF, obj)
+        elif isinstance(obj, str):
+            data = obj.encode("utf-8")
+            self._header(len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+            self.out += data
+        elif isinstance(obj, bytes):
+            self._header(len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+            self.out += obj
+        elif isinstance(obj, dict):
+            self._header(len(obj), 0x80, 16, (None, 0xDE, 0xDF))
+            for k, v in obj.items():
+                self.write(k)
+                self.write(v)
+        elif isinstance(obj, list):
+            self._header(len(obj), 0x90, 16, (None, 0xDC, 0xDD))
+            for v in obj:
+                self.write(v)
+        elif isinstance(obj, np.ndarray):
+            self._ndarray(obj)
+        else:
+            raise TypeError(f"cannot msgpack {type(obj).__name__} in a parameter tree")
+
+    def _ndarray(self, arr: np.ndarray) -> None:
+        if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+            raise ValueError("object and structured dtypes cannot be serialised")
+        payload = _Writer()
+        payload.write([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        data = bytes(payload.out)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(data) in fixext:
+            self.put(">B", fixext[len(data)])
+        else:
+            self._header(len(data), None, 0, (0xC7, 0xC8, 0xC9))
+        self.put(">b", _EXT_NDARRAY)
+        self.out += data
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Nested dicts (str keys) of numpy arrays -> the bytes that
+    ``flax.serialization.to_bytes`` gives for them: keys in each dict's own
+    order, no leaf at flax's 2^30-byte chunking threshold."""
+    writer = _Writer()
+    writer.write(tree)
+    return bytes(writer.out)
+
+
+# the inverse of params_from_flax's names
+_INNER_FLAX = {v: k for k, v in _INNER.items()}
+_INNER_ORDER = ("GroupNorm_0", "Conv_0", "GroupNorm_1", "Conv_1", "proj")
+
+
+def flax_from_params(state: dict[str, torch.Tensor]) -> dict:
+    """A :class:`~.unet.CellposeNet` ``state_dict`` -> the Flax param tree
+    ``{"params": {...}}`` of numpy arrays (the inverse of
+    :func:`params_from_flax`): conv kernels OIHW -> HWIO, Linear (out, in)
+    -> Dense (in, out), GroupNorm weight -> scale; the dtype kept. Modules
+    and leaves come in the order Flax creates them (``stem``, ``down0a``,
+    ``down0b``, ..., then for each decoder stage from the deepest
+    ``up{i}_reduce``, ``style{i}``, ``up{i}a``, ``up{i}b``; ``head`` last;
+    inside a block ``GroupNorm_0, Conv_0, GroupNorm_1, Conv_1, proj``)."""
+    n_levels = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("down."))
+    decoder = 1 + 2 * n_levels  # rank of the first decoder module
+    leaves = []
+    for key, value in state.items():
+        arr = value.detach().cpu().numpy()
+        *mod, name = key.split(".")
+        if mod[0] in ("down", "up"):
+            i, j, inner = int(mod[1]), int(mod[2]), _INNER_FLAX[mod[3]]
+            path = (f"{mod[0]}{i}{'ab'[j]}", inner)
+            rank = (1 + 2 * i + j if mod[0] == "down"
+                    else decoder + 4 * (n_levels - 2 - i) + 2 + j, _INNER_ORDER.index(inner))
+            norm = inner.startswith("GroupNorm")
+        elif mod[0] in ("up_reduce", "style"):
+            i = int(mod[1])
+            path = (f"up{i}_reduce",) if mod[0] == "up_reduce" else (f"style{i}",)
+            rank = (decoder + 4 * (n_levels - 2 - i) + (mod[0] == "style"), 0)
+            norm = False
+        elif mod == ["stem"] or mod == ["head"]:
+            path = (mod[0],)
+            rank = (0 if mod[0] == "stem" else decoder + 4 * (n_levels - 1), 0)
+            norm = False
+        else:
+            raise KeyError(f"unexpected parameter {key}")
+        if name == "weight":
+            leaf = "scale" if norm else "kernel"
+            if not norm:
+                arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        elif name == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"unexpected parameter {key}")
+        leaves.append((rank, leaf != "bias", path + (leaf,), np.ascontiguousarray(arr)))
+    tree: dict = {}
+    for _, _, path, arr in sorted(leaves, key=lambda t: (t[0], not t[1])):
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = arr
+    return {"params": tree}

@@ -153,6 +153,32 @@ Phases, in order; any failure exits non-zero:
    to the same models in process on the card; round trip and bytes a
    request. (d) ``detect_spots`` + ``paint_spots`` on 16 frames of 1080^2:
    the card's coordinates, radii and labels equal to the CPU's; ms a frame.
+8. training (slice 7): the flagship U-Net at full width (32, 64, 128, 256),
+   bf16, batches of 8 synthetic fields at 128^2 (``models.training.
+   synthetic_batch``: the host renders, the targets come from one
+   ``masks_to_flows`` call a batch on the card), AdamW with optax's defaults
+   on a cosine schedule (alpha 0.05), as ``scripts/torch_train_flagship.py``
+   runs it. (a) 30 steps from ``init_params(seed=0)`` at peak 2e-3, every
+   launch counter set to 0 before: the mean loss of the last 5 steps below
+   that of the first 5, 12 ``diffuse_heat`` launches a step (none of the
+   other kernels), steps/s end to end and peak memory. (b) 20 steps from the
+   bundled weights (the port's ``load_params``) at peak 5e-4, written with
+   ``save_params``: ``dispatch_segmenter("cellpose", pretrained_path=...)``
+   on the card gives the U-Net output bits and the labels of the f16-rounded
+   parameters in memory; ``test_trained_cellpose_quality``'s gate (objects
+   within 3, matched IoU > 0.85) reported for both checkpoints, asserted on
+   the bundled one. (c) The targets' ``diffuse_heat`` call (8 x 128^2, 96
+   rounds) held bit-equal to its plain version and timed beside its bound,
+   a row of the ``kernels`` line. (d) Two runs of 5 steps from one seed, in
+   f32 and in bf16, give the same losses and parameter bits; one f32 step
+   on the card (TF32 off) against the CPU's: the loss within
+   ``LOSS_RTOL`` and each gradient within the card's limits of
+   ``extract.tolerances.gradient_excess``; a step under
+   ``torch.cuda.set_sync_debug_mode("error")``. (e) ms a step (CUDA events)
+   in bf16 and f32, split into forward-backward and optimizer, ms of the
+   targets on the card, host render ms a batch, the device idle share of 3
+   steps, and a ``utils.profiling.trace`` of 2 steps whose ``annotate``
+   names are found in the profile.
    Each phase prints its seconds.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -212,6 +238,7 @@ REPLACES = {
     "binned_sum_cols_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:234",
     "binned_minmax_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:302",
+    "diffuse_heat (training targets)": "aliby_tpu/ops/pallas_stencil.py:182",
 }
 SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
 DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
@@ -2594,6 +2621,281 @@ def zoo_phase(dev) -> dict:
     return out, rows
 
 
+# ------------------------------------------------------------------ phase 8
+TRAINING = " (training targets)"
+TRAIN_BATCH, TRAIN_SIZE = 8, 128  # scripts/torch_train_flagship.py's batches
+TRAIN_FRESH, TRAIN_RESUMED, TRAIN_SAME = 30, 20, 5  # steps of (a), (b) and each run of (d)
+TRAIN_PEAK_FRESH, TRAIN_PEAK_RESUMED, TRAIN_ALPHA = 2e-3, 5e-4, 0.05
+QUALITY_COUNT, QUALITY_IOU = 3, 0.85  # tests/test_models.py::test_trained_cellpose_quality
+
+
+def train_model(dev, dtype=torch.bfloat16, bundled=False):
+    """The flagship at full width from ``init_params(seed=0)``, or with the
+    bundled weights loaded by the port's ``load_params``."""
+    from aliby_tpu_torch.models.training import load_params
+    from aliby_tpu_torch.models.unet import init_params
+    from aliby_tpu_torch.models.weights import BUNDLED_WEIGHTS
+
+    model = init_params(0, in_channels=2, size=TRAIN_SIZE, device=dev, dtype=dtype)
+    if bundled:
+        model.load_state_dict(load_params(BUNDLED_WEIGHTS, model))
+    return model
+
+
+def train_run(model, steps: int, peak: float, seed: int, dev) -> tuple[list, float]:
+    """``scripts/torch_train_flagship.py``'s loop: AdamW on a cosine schedule
+    (alpha 0.05), a fresh synthetic batch of 8 at 128^2 a step (host render,
+    then the targets on the card). Returns the losses and the wall seconds;
+    the losses are read once, at the end."""
+    from aliby_tpu_torch.models.training import (
+        adamw,
+        cosine_decay_schedule,
+        make_train_step,
+        synthetic_batch,
+    )
+
+    opt, scheduler = adamw(model.parameters(), cosine_decay_schedule(peak, steps, TRAIN_ALPHA))
+    step = make_train_step(model, opt, scheduler)
+    rng = np.random.default_rng(seed)
+    sync()
+    t0 = time.perf_counter()
+    losses = [step(synthetic_batch(rng, TRAIN_BATCH, TRAIN_SIZE, device=dev))["loss"]
+              for _ in range(steps)]
+    losses = torch.stack(losses).tolist()
+    return losses, time.perf_counter() - t0
+
+
+def same_parameters(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                 b.state_dict().values()))
+
+
+def quality_gate(seg) -> tuple[int, float]:
+    """``test_trained_cellpose_quality``'s field (render_cells(128, 10), rng
+    77, noise 0.03): the object count's distance from the truth's and the
+    mean matched IoU of the truth's objects."""
+    from aliby_tpu_torch.test_data import render_cells
+
+    rng = np.random.default_rng(77)
+    cells, nuclei, labels = render_cells(128, 10, rng)
+    noise = rng.normal(0, 0.03, cells.shape).astype(np.float32)
+    mask = seg(np.stack([cells + noise, nuclei + noise])[None][:, :, None])[0]
+    return abs(int(mask.max()) - int(labels.max())), matched_iou(labels, mask)
+
+
+def f32_step_against_cpu(dev) -> dict:
+    """(d) One f32 step at full width on the card (TF32 off inside the step)
+    and on the CPU, on one batch: the loss within LOSS_RTOL and each gradient
+    within the card's limits of ``extract.tolerances.gradient_excess``."""
+    from aliby_tpu_torch.extract.tolerances import (
+        GRAD_CARD_FLOOR_ATOL,
+        GRAD_CARD_RTOL,
+        LOSS_RTOL,
+        gradient_excess,
+    )
+    from aliby_tpu_torch.models.training import adamw, make_train_step, synthetic_batch
+
+    batch = synthetic_batch(np.random.default_rng(3), TRAIN_BATCH, TRAIN_SIZE, device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        model = train_model(where, torch.float32)
+        opt, scheduler = adamw(model.parameters(), TRAIN_PEAK_FRESH)
+        grads = {}
+        opt.register_step_pre_hook(lambda *a, model=model, grads=grads: grads.update(
+            {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()}))
+        t0 = time.perf_counter()
+        metrics = make_train_step(model, opt, scheduler)({k: v.to(where)
+                                                          for k, v in batch.items()})
+        out[str(where)] = (float(metrics["loss"]), grads, time.perf_counter() - t0)
+    (loss_c, grads_c, s_c), (loss_g, grads_g, _) = out["cpu"], out[str(dev)]
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    excess = gradient_excess(grads_g, grads_c, GRAD_CARD_RTOL, GRAD_CARD_FLOOR_ATOL)
+    name, (worst, _) = max(excess.items(), key=lambda kv: kv[1][0])
+    log(f"[train] (d) one f32 step, card (TF32 off) vs CPU ({s_c:.1f} s on the CPU): loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (rel {rel:.3g}, limit {LOSS_RTOL}); worst gradient "
+        f"{name} at {worst:.3g} of its limit ({GRAD_CARD_RTOL} of the tensor's largest |g|); "
+        f"{sum(f for _, f in excess.values())} rounding-only tensors")
+    if rel > LOSS_RTOL or worst > 1:
+        raise AssertionError(f"(d) the f32 card step differs from the CPU's: loss rel {rel}, "
+                             f"{name} at {worst} of its limit")
+    return {"loss_rel": rel, "worst_gradient": name, "worst_share_of_limit": worst}
+
+
+def training_phase(dev) -> tuple[dict, dict]:
+    """Phase 8: training. Returns its numbers and the kernel row of the
+    targets' ``diffuse_heat`` call."""
+    import tempfile
+
+    from aliby_tpu_torch.models import flows
+    from aliby_tpu_torch.models import training as T
+    from aliby_tpu_torch.models.segment import CellposeTorch, dispatch_segmenter
+    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.utils import profiling
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="aliby_train_")
+
+    # (a) a fresh run at train_flagship's configuration, counted
+    model = train_model(dev)
+    wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
+                "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+                "binned_minmax_batched": segsum.binned_minmax_batched,
+                "table_lookup_batched": segsum.table_lookup_batched,
+                "segment_sum_matmul": segsum.segment_sum_matmul}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with Recorder(flows, "diffuse_heat") as rec:
+        losses, wall = train_run(model, TRAIN_FRESH, TRAIN_PEAK_FRESH, 0, dev)
+    all_launches = {k: w.launches for k, w in wrappers.items()}
+    launches = all_launches["diffuse_heat"]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = launches / TRAIN_FRESH
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"[train] (a) fresh, bf16, widths {model.feats}, batch {TRAIN_BATCH} at {TRAIN_SIZE}^2, "
+        f"peak lr {TRAIN_PEAK_FRESH}: {TRAIN_FRESH} steps in {wall:.2f} s "
+        f"({TRAIN_FRESH / wall:.3f} steps/s end to end), peak {peak:.3f} GB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first 5 {first:.4f}, of the last 5 "
+        f"{last:.4f}; kernel launches {all_launches} ({per_step:g} diffuse_heat a step)")
+    if launches <= 0 or rec.args is None:
+        raise AssertionError("(a) diffuse_heat was not launched by the training targets")
+    if per_step != stencil.diffuse_launches(STENCIL_ROUNDS):
+        raise AssertionError(f"(a) {per_step} diffuse_heat launches a train step, expected "
+                             f"{stencil.diffuse_launches(STENCIL_ROUNDS)}")
+    if tuple(rec.args[0].shape) != (TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE):
+        raise AssertionError(f"(a) the targets' call had shape {tuple(rec.args[0].shape)}")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"(a) the loss did not fall: {first} -> {last}")
+    out["fresh"] = {"steps": TRAIN_FRESH, "s": wall, "steps_per_s": TRAIN_FRESH / wall,
+                    "peak_gb": peak, "loss_first5": first, "loss_last5": last,
+                    "diffuse_heat_launches": launches}
+
+    # (b) resumed from the bundled weights, saved, segmented from the file
+    model = train_model(dev, bundled=True)
+    losses_b, wall_b = train_run(model, TRAIN_RESUMED, TRAIN_PEAK_RESUMED, 1, dev)
+    path = os.path.join(tmp.name, "resumed.msgpack")
+    T.save_params(model, path)
+    in_memory = CellposeTorch(device=dev)
+    in_memory.model.load_state_dict({k: v.to(torch.float16).to(torch.float32)
+                                     for k, v in model.state_dict().items()})
+    from_file = dispatch_segmenter("cellpose", 0, second_channel=1, pretrained_path=path,
+                                   device=dev)
+    bundled = dispatch_segmenter("cellpose", 0, second_channel=1, device=dev)
+    counts = []
+    for seed in (77, 78):
+        rng = np.random.default_rng(seed)
+        fields = np.stack([np.stack(T._render(rng, TRAIN_SIZE, 0.3, 0.3)[:2]) for _ in range(4)])
+        got = from_file(fields[:, :, None])
+        want = in_memory.segment_tiles(fields)
+        counts.append([int(m.max()) for m in want])
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"(b) the port-written checkpoint does not segment as the "
+                                 f"parameters in memory (objects {counts[-1]}, from the file "
+                                 f"{[int(m.max()) for m in got]})")
+        x = torch.from_numpy(fields.transpose(0, 2, 3, 1).copy()).to(dev)
+        with torch.no_grad():
+            if not torch.equal(from_file.engine.model(x), in_memory.model(x)):
+                raise AssertionError("(b) the U-Net from the port-written file differs from "
+                                     "the parameters in memory")
+    gates = {"bundled": quality_gate(bundled), "resumed": quality_gate(from_file)}
+    log(f"[train] (b) resumed from the bundled weights, peak lr {TRAIN_PEAK_RESUMED}: "
+        f"{TRAIN_RESUMED} steps in {wall_b:.2f} s, loss {statistics.mean(losses_b[:5]):.4f} "
+        f"(first 5) -> {statistics.mean(losses_b[-5:]):.4f} (last 5); saved with save_params "
+        f"({os.path.getsize(path)} bytes); from the file on the card, the U-Net's output bits "
+        f"and the labels of the f16-rounded parameters in memory (8 fields, objects {counts}); "
+        f"quality gate (|count - truth|, matched IoU): " +
+        ", ".join(f"{k} {c}, {iou:.4f}" for k, (c, iou) in gates.items()))
+    c, iou = gates["bundled"]
+    if c > QUALITY_COUNT or not iou > QUALITY_IOU:
+        raise AssertionError(f"(b) the bundled weights fail the quality gate: {c}, {iou}")
+    out["resumed"] = {"steps": TRAIN_RESUMED, "s": wall_b,
+                      "loss_first5": statistics.mean(losses_b[:5]),
+                      "loss_last5": statistics.mean(losses_b[-5:]),
+                      "quality": {k: {"count_off": c, "matched_iou": i}
+                                  for k, (c, i) in gates.items()}}
+
+    # (c) the targets' diffuse_heat call: bit-equal to plain, timed beside its bound
+    log("[report] diffuse_heat at the training targets' call (launches: the fresh run of "
+        f"{TRAIN_FRESH} steps):")
+    row = measure_kernels({"diffuse_heat": rec.args}, {"diffuse_heat": launches})["diffuse_heat"]
+    row["name"] = "diffuse_heat" + TRAINING
+    row["launches_per_train_step"] = per_step
+    rows = {row["name"]: row}
+
+    # (d) identity across runs, f32 against the CPU, no host sync in the step
+    for dtype in (torch.float32, torch.bfloat16):
+        a, b = train_model(dev, dtype), train_model(dev, dtype)
+        la, _ = train_run(a, TRAIN_SAME, TRAIN_PEAK_FRESH, 2, dev)
+        lb, _ = train_run(b, TRAIN_SAME, TRAIN_PEAK_FRESH, 2, dev)
+        if la != lb or not same_parameters(a, b):
+            raise AssertionError(f"(d) two {dtype} runs of {TRAIN_SAME} steps differ")
+    log(f"[train] (d) two runs of {TRAIN_SAME} steps from one seed, f32 and bf16: the same "
+        f"losses and parameter bits")
+    out["f32_vs_cpu"] = f32_step_against_cpu(dev)
+    model = train_model(dev)
+    opt, scheduler = T.adamw(model.parameters(), TRAIN_PEAK_RESUMED)
+    step = T.make_train_step(model, opt, scheduler)
+    rng = np.random.default_rng(4)
+    batch = T.synthetic_batch(rng, TRAIN_BATCH, TRAIN_SIZE, device=dev)
+    step(batch)
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("[train] (d) a train step under torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # (e) where a step's time goes
+    labels = torch.from_numpy(np.stack([T._render(rng, TRAIN_SIZE, 0.0, 0.0)[2]
+                                        for _ in range(TRAIN_BATCH)]).astype(np.int32)).to(dev)
+    times = {"host_render_ms": host_ms(lambda: [T._render(rng, TRAIN_SIZE, 0.0, 0.0)
+                                                for _ in range(TRAIN_BATCH)]),
+             "targets_ms": cuda_ms(lambda: flows.masks_to_flows(labels))}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = train_model(dev, dtype)
+        opt, scheduler = T.adamw(model.parameters(), TRAIN_PEAK_RESUMED)
+        step = T.make_train_step(model, opt, scheduler)
+
+        def forward_backward():
+            model.zero_grad(set_to_none=True)
+            with T.deterministic_cudnn(), (T.tf32_off() if dtype == torch.float32
+                                           else contextlib.nullcontext()):
+                T.loss_fn(model, batch)[0].backward()
+
+        times[f"step_ms_{name}"] = cuda_ms(lambda: step(batch))
+        times[f"forward_backward_ms_{name}"] = cuda_ms(forward_backward)
+        times[f"optimizer_ms_{name}"] = cuda_ms(opt.step)
+        if dtype == torch.bfloat16:
+            main_step = step
+    log("[train] (e) " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) +
+        " (CUDA events, median of 21; the host render by the host clock)")
+    out["times"] = times
+
+    def steps(n=3):
+        for _ in range(n):
+            main_step(T.synthetic_batch(rng, TRAIN_BATCH, TRAIN_SIZE, device=dev))
+
+    share = device_share(steps, what="3 train steps, batches included (bf16)")
+    out["idle_share"] = None if share is None else share["idle_share"]
+    names = ("train_targets", "train_step")
+    with profiling.trace(os.path.join(tmp.name, "trace")) as prof:
+        for _ in range(2):
+            with profiling.annotate(names[0]):
+                b = T.synthetic_batch(rng, TRAIN_BATCH, TRAIN_SIZE, device=dev)
+            with profiling.annotate(names[1]):
+                main_step(b)
+        sync()
+    found = {e.key for e in prof.key_averages()}
+    trace_bytes = os.path.getsize(os.path.join(tmp.name, "trace", "trace.json"))
+    if not set(names) <= found:
+        raise AssertionError(f"(e) the annotate names {names} are not in the profile")
+    log(f"[train] (e) profiling.trace of 2 steps: {trace_bytes} bytes of Chrome trace, the "
+        f"annotate names {names} found")
+    tmp.cleanup()
+    return out, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2806,10 +3108,15 @@ def main() -> int:
     rows.update(zoo_rows)
     phase_done("7 (model zoo and server)")
 
+    # ---------------------------------------------------------------- 8 training
+    training, train_rows = training_phase(dev)
+    rows.update(train_rows)
+    phase_done("8 (training)")
+
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},
                     "fused example-01": ex01_stats, "fused default bank": fused_stats,
-                    "zoo": zoo}))
+                    "zoo": zoo, "training": training}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"kernels": [rows[name] for name in REPLACES]}), flush=True)

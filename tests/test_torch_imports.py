@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``aliby_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``flax`` or any module of ``aliby_tpu``;
-and none imports ``pyarrow``, ``yaml``, ``PIL`` or ``imageio`` when it is
-imported (the GPU hosts of the port have none of them: the functions that
-write parquet, read or write yaml, or decode TIFFs import them inside)."""
+and none imports ``pyarrow``, ``yaml``, ``PIL``, ``imageio``, ``pandas`` or
+``h5py`` when it is imported (the GPU hosts of the port have none of them:
+the functions that write or read parquet, read or write yaml, decode TIFFs,
+make data frames or open HDF5 files import them inside)."""
 
 import ast
 from pathlib import Path
@@ -28,6 +29,12 @@ def _imports(path: Path):
 
 def test_files_found():
     assert len(FILES) >= 15
+    scanned = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("models/training.py", "models/unet.py", "models/weights.py",
+                   "utils/profiling.py", "postprocess/cells.py", "postprocess/signal.py",
+                   "postprocess/indexing.py", "postprocess/progress.py", "logparse/grammar.py",
+                   "logparse/swainlab.py", "logparse/metadata.py", "io/h5compat.py"):
+        assert f"aliby_tpu_torch/{module}" in scanned, module
 
 
 def _import_time_nodes(nodes):
@@ -58,7 +65,7 @@ def test_no_module_level_pyarrow(path):
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name} at import time")
 
 
-HOST_ONLY = ("pyarrow", "yaml", "PIL", "imageio")
+HOST_ONLY = ("pyarrow", "yaml", "PIL", "imageio", "pandas", "h5py")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

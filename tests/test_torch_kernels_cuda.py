@@ -889,3 +889,97 @@ def test_model_server_on_the_card(dev, tmp_path):
             local = dispatch_segmenter("spots" if kind == "spotiflow" else kind, 3,
                                        device=dev)(pixels)
             assert len(remote) == 2 and all(np.array_equal(a, b) for a, b in zip(remote, local))
+
+
+def _train_run(dev, dtype, steps, batch=2, size=64, seed=0):
+    """``steps`` train steps of the flagship at full width from
+    ``init_params(seed)``, batches from ``default_rng(seed)``, a cosine
+    schedule at 2e-3: (model, losses)."""
+    from aliby_tpu_torch.models import training as T
+    from aliby_tpu_torch.models.unet import init_params
+
+    model = init_params(seed, device=dev, dtype=dtype)
+    opt, scheduler = T.adamw(model.parameters(), T.cosine_decay_schedule(2e-3, steps, 0.05))
+    step = T.make_train_step(model, opt, scheduler)
+    rng = np.random.default_rng(seed)
+    losses = [step(T.synthetic_batch(rng, batch, size, device=dev))["loss"] for _ in range(steps)]
+    return model, torch.stack(losses)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_runs_on_the_card_give_the_same_bits(dev, dtype):
+    a, loss_a = _train_run(dev, dtype, 3)
+    b, loss_b = _train_run(dev, dtype, 3)
+    assert torch.equal(loss_a, loss_b)
+    for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(x, y), name
+
+
+def test_train_targets_on_the_card_and_no_host_sync(dev):
+    """One batch's targets are one diffuse_heat call; the batch is the CPU's
+    (images and fg bit-equal, flows within 1e-5); the step makes no host
+    synchronisation once its batch is on the card."""
+    from aliby_tpu_torch.models import training as T
+    from aliby_tpu_torch.models.unet import init_params
+
+    before = stencil.diffuse_heat.launches
+    batch = T.synthetic_batch(np.random.default_rng(4), 3, 64, budding_frac=0.3, device=dev)
+    assert stencil.diffuse_heat.launches == before + stencil.diffuse_launches(96)
+    cpu = T.synthetic_batch(np.random.default_rng(4), 3, 64, budding_frac=0.3, device="cpu")
+    assert torch.equal(batch["image"].cpu(), cpu["image"]) and torch.equal(batch["fg"].cpu(),
+                                                                           cpu["fg"])
+    assert (batch["flows"].cpu() - cpu["flows"]).abs().max() <= 1e-5
+    model = init_params(0, device=dev)
+    opt, scheduler = T.adamw(model.parameters(), 1e-3)
+    step = T.make_train_step(model, opt, scheduler)
+    step(batch)  # the first step allocates the optimizer's state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = step(batch)
+        metrics = step(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+def test_f32_train_step_on_the_card_matches_the_cpu(dev):
+    """One f32 step at full width on the card (TF32 off inside the step, the
+    caller's flag kept) against the same step on the CPU: the loss within
+    LOSS_RTOL, each gradient by ``gradient_excess`` at the card's limits."""
+    from aliby_tpu_torch.extract.tolerances import (
+        GRAD_CARD_FLOOR_ATOL,
+        GRAD_CARD_RTOL,
+        LOSS_RTOL,
+        gradient_excess,
+    )
+    from aliby_tpu_torch.models import training as T
+    from aliby_tpu_torch.models.unet import init_params
+
+    batch = T.synthetic_batch(np.random.default_rng(2), 2, 64, device="cpu")
+    out = {}
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where in ("cpu", dev):
+            model = init_params(0, device=where, dtype=torch.float32)
+            seen = []
+            model.register_forward_hook(lambda *a: seen.append(torch.backends.cudnn.allow_tf32))
+            opt, scheduler = T.adamw(model.parameters(), 1e-3)
+            grads = {}
+            opt.register_step_pre_hook(lambda *a: grads.update(
+                {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()}))
+            metrics = T.make_train_step(model, opt, scheduler)(
+                {k: v.to(where) for k, v in batch.items()})
+            out[str(where)] = (float(metrics["loss"]), grads, seen)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    (loss_c, grads_c, _), (loss_g, grads_g, seen) = out["cpu"], out[str(dev)]
+    assert seen == [False]
+    np.testing.assert_allclose(loss_g, loss_c, rtol=LOSS_RTOL)
+    excess = gradient_excess(grads_g, grads_c, GRAD_CARD_RTOL, GRAD_CARD_FLOOR_ATOL)
+    worst = max(excess.items(), key=lambda kv: kv[1][0])
+    print(f"f32 card vs CPU: loss rel {abs(loss_g - loss_c) / abs(loss_c):.3g}, worst gradient "
+          f"{worst[0]} at {worst[1][0]:.3g} of its limit")
+    assert worst[1][0] <= 1, worst
