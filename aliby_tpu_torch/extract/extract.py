@@ -360,6 +360,10 @@ def _reduce_z(pixels: np.ndarray, method) -> np.ndarray:
     raise KeyError(f"Unknown z-reduction {method!r}")
 
 
+# the z-reductions and channel combinations a tree may name (the reference's set)
+REDUCTION_FUNS = {"max", "min", "mean", "median", "add", "div", "None", None}
+
+
 def _max_labels_bucket(n: int) -> int:
     b = 8
     while b < n:

@@ -465,6 +465,11 @@ def convex_area_pixels(labels, max_labels: int, pmax=None, pmin=None, n_dir: int
     return torch.where(valid, area, torch.full((), float("nan"), device=area.device))
 
 
+def convex_area_from_extents(labels, max_labels: int, n_dir: int = 180):
+    """The reference's backwards-compatible name of :func:`convex_area_pixels`."""
+    return convex_area_pixels(labels, max_labels, n_dir=n_dir)
+
+
 def minimum_enclosing_circle(labels: torch.Tensor, max_labels: int, bc_iters: int = 96,
                              top_k: int = 12):
     """Per-label minimum enclosing circle (cy, cx, r) of pixel centres, each

@@ -1,10 +1,11 @@
 """Image sources: lazy 5-D ``TCZYX`` assembly from TIFF/zarr inputs
 (counterpart of ``aliby_tpu/io/image.py``).
 
-TIFF and other image files are read with imageio (multi-page TIFFs with
-PIL), imported inside the reading functions: the GPU hosts of the port need
-neither, and zarr stores need neither. The reference's native TIFF decoder
-(``aliby_tpu/native``) is not ported (ROADMAP queue 1, item 6).
+Single-page TIFFs are read by the port's native decoder
+(``aliby_tpu_torch.native``), as the reference reads them; anything it
+returns None on, and every other image file, is read with imageio, and
+multi-page TIFFs with PIL, both imported inside the reading functions (the
+GPU hosts of the port have neither).
 
 Reference behaviors mirrored (``aliby/io/image.py``):
 
@@ -50,7 +51,14 @@ DEFAULT_DIMORDER = "TCZYX"
 
 
 def _read_image_file(path: str | Path) -> np.ndarray:
-    """Read one image file into numpy with imageio."""
+    """Read one image file into numpy; native TIFF decoder first, imageio
+    for everything else (and the TIFF variants the decoder does not read)."""
+    if ".tif" in Path(path).suffix:
+        from aliby_tpu_torch import native
+
+        arr = native.tiff_decode(path)
+        if arr is not None:
+            return arr
     import imageio.v3 as iio
 
     return np.asarray(iio.imread(str(path)))

@@ -8,8 +8,9 @@ input modalities (``aliby/io/image.py:236-276``): C-order chunked arrays with
 null / zlib / gzip / zstd / lz4 / blosc compressors. zlib, gzip, raw and
 blosc's own framing need numpy and the stdlib only; zstd and lz4 blocks go
 through pyarrow's codecs, imported where they are decoded (the GPU hosts of
-the port need not have pyarrow). JPEG-XL chunks raise: their decoder
-(``io/jxl.py``) is not ported.
+the port need not have pyarrow). JPEG-XL chunks are decoded and written
+through the system libjxl (``io/jxl.py``), or decoded by ``imagecodecs``
+where libjxl is absent.
 
 Chunks are decoded on demand — ``ZarrArray`` is an indexable (shape/dtype/
 ``__getitem__``) suitable for the lazy-view layer.
@@ -23,9 +24,6 @@ from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
-
-_JXL_ITEM = "io/jxl.py, the JPEG-XL chunk codec (ROADMAP queue 1, item 6)"
-
 
 def _codec(name: str):
     """pyarrow's ``name`` codec, imported at the first block that needs it."""
@@ -107,7 +105,21 @@ def _decompress(buf: bytes, compressor: dict | None, out_nbytes: int, typesize: 
             buf, decompressed_size=out_nbytes
         ).to_pybytes()
     if cid in ("jpegxl", "imagecodecs_jpegxl", "jxl"):
-        raise NotImplementedError(f"zarr compressor {cid!r}: {_JXL_ITEM}")
+        # libjxl through io/jxl.py first; imagecodecs only if libjxl is absent
+        from aliby_tpu_torch.io import jxl as _jxl
+
+        if _jxl.available():
+            return np.ascontiguousarray(_jxl.decode(buf)).tobytes()
+        try:
+            import imagecodecs
+        except ImportError as e:
+            raise RuntimeError(
+                "This zarr store uses JPEG-XL-compressed chunks "
+                f"(compressor id {cid!r}); decoding requires the system "
+                "libjxl shared library (or the 'imagecodecs' package), "
+                "neither of which is available."
+            ) from e
+        return np.ascontiguousarray(imagecodecs.jpegxl_decode(buf)).tobytes()
     raise NotImplementedError(f"zarr compressor {cid!r}")
 
 
@@ -267,15 +279,23 @@ def write_array(
     attrs: dict | None = None,
     compressor: str | None = "zlib",
 ) -> None:
-    """Write a v2 directory-store array (zlib or raw): fixtures and
-    outputs. ``jpegxl`` raises (``io/jxl.py`` is not ported)."""
+    """Write a v2 directory-store array (zlib, jpegxl or raw): fixtures and
+    outputs. ``jpegxl`` requires image-shaped chunks (all leading chunk dims
+    1, trailing (Y, X) = the image plane) and encodes each chunk losslessly
+    through the libjxl binding (``io/jxl.py``)."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     if chunks is None:
         chunks = (1,) * max(0, arr.ndim - 2) + arr.shape[max(0, arr.ndim - 2):]
     if compressor == "jpegxl":
-        raise NotImplementedError(f"jpegxl compression: {_JXL_ITEM}")
-    comp_meta = {"id": "zlib", "level": 1} if compressor == "zlib" else None
+        if any(c != 1 for c in chunks[:-2]) or len(chunks) < 2:
+            raise ValueError(
+                "jpegxl compression needs (1, ..., 1, Y, X) image chunks; "
+                f"got {chunks}"
+            )
+        comp_meta = {"id": "jpegxl"}
+    else:
+        comp_meta = {"id": "zlib", "level": 1} if compressor == "zlib" else None
     meta = {
         "zarr_format": 2,
         "shape": list(arr.shape),
@@ -298,9 +318,14 @@ def write_array(
         block = np.zeros(chunks, dtype=arr.dtype)
         view = arr[sel]
         block[tuple(slice(0, v) for v in view.shape)] = view
-        payload = block.tobytes()
-        if comp_meta:
-            payload = zlib.compress(payload, 1)
+        if comp_meta and comp_meta["id"] == "jpegxl":
+            from aliby_tpu_torch.io import jxl as _jxl
+
+            payload = _jxl.encode(block.reshape(block.shape[-2:]))
+        else:
+            payload = block.tobytes()
+            if comp_meta:
+                payload = zlib.compress(payload, 1)
         (path / ".".join(map(str, coords))).write_bytes(payload)
 
 

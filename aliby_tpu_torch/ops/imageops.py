@@ -12,7 +12,8 @@ batched over a leading axis: images are ``(B, H, W)``.
 - Trap detection's filters: binary morphology, :func:`clear_border`,
   :func:`entropy_filter`, FFT correlation and :func:`match_template`,
   :func:`resize_bilinear`.
-- The tiler's host phase correlation.
+- Phase correlation (on the device, and the tiler's host form) and
+  :func:`downscale_mean`.
 
 Floating-point work is spelled as elementwise operations in a fixed order
 (no library reduction decides an order), so the CPU and the card give the
@@ -98,6 +99,58 @@ def phase_cross_correlation_host(reference: np.ndarray, moving: np.ndarray) -> n
     if dx > W // 2:
         dx -= W
     return np.array([dy, dx], np.float32)
+
+
+def phase_cross_correlation(reference: torch.Tensor, moving: torch.Tensor,
+                            upsample_factor: int = 1) -> torch.Tensor:
+    """Shift (dy, dx) registering each ``moving`` image to its ``reference``
+    on their device, (..., H, W) -> (..., 2) f32 (the reference's
+    ``phase_cross_correlation``): the first maximum of the magnitude of the
+    inverse FFT of the cross-power spectrum, wrapped to signed shifts; with
+    ``upsample_factor > 1``, a parabolic refinement around that peak, at
+    most one pixel an axis."""
+    H, W = reference.shape[-2:]
+    fa = torch.fft.fft2(reference.to(torch.float32))
+    fb = torch.fft.fft2(moving.to(torch.float32))
+    mag = torch.fft.ifft2(fa * fb.conj()).abs().reshape(*reference.shape[:-2], H * W)
+    idx = _argmax_first(mag)
+    dy = idx // W
+    dx = idx % W
+    dy = torch.where(dy > H // 2, dy - H, dy)
+    dx = torch.where(dx > W // 2, dx - W, dx)
+    shift = torch.stack([dy, dx], -1).to(torch.float32)
+    if upsample_factor <= 1:
+        return shift
+
+    def at(y, x):
+        return mag.gather(-1, ((y % H) * W + x % W).unsqueeze(-1)).squeeze(-1)
+
+    c = at(dy, dx)
+
+    def refine(d, plus, minus):
+        denom = plus - 2 * c + minus
+        frac = torch.where(denom.abs() > 1e-9, (minus - plus) / (2 * denom), 0.0)
+        return d + frac.clamp(-1, 1)
+
+    return torch.stack([refine(shift[..., 0], at(dy + 1, dx), at(dy - 1, dx)),
+                        refine(shift[..., 1], at(dy, dx + 1), at(dy, dx - 1))], -1)
+
+
+def downscale_mean(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Integer-factor mean pooling of (..., H, W) images (the reference's
+    ``downscale_mean``): rows and columns past the last whole block are
+    dropped; each block's f32 sum is taken in the reference backend's
+    order (row by row, left to right) and multiplied by the f32 reciprocal
+    of ``factor ** 2``, as XLA computes the mean: the same bits."""
+    H, W = img.shape[-2:]
+    Hc, Wc = (H // factor) * factor, (W // factor) * factor
+    x = img[..., :Hc, :Wc].to(torch.float32)
+    x = x.reshape(*img.shape[:-2], Hc // factor, factor, Wc // factor, factor)
+    acc = torch.zeros_like(x[..., 0, :, 0])
+    for j in range(factor):
+        for k in range(factor):
+            acc = acc + x[..., j, :, k]
+    return acc * float(np.float32(1.0 / (factor * factor)))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Label-map utilities (counterpart of ``aliby_tpu/ops/labels.py``).
 
 Batched over a leading axis: :func:`connected_components` (the reference's
-fixed iterations, the same ids), :func:`relabel_dense` (segmentation),
+fixed iterations, the same ids) and :func:`connected_components_hybrid`
+(local rounds, then hook rounds until stable; no caller on a path, as in
+the reference), :func:`relabel_dense` (segmentation),
 :func:`relabel_sequential` and its batched form (tracking),
 :func:`label_onehot`, :func:`segment_sum`, :func:`num_labels` and
-:func:`to_uint16_labels`. ``connected_components_hybrid`` has no caller on
-a ported path.
+:func:`to_uint16_labels`.
 """
 
 from __future__ import annotations
@@ -36,29 +37,66 @@ def _jump(flat: torch.Tensor, hw: int) -> torch.Tensor:
     return torch.where(flat < _BIG, torch.minimum(flat, nxt), flat.new_full((), _BIG))
 
 
+def _hook_round(lbl: torch.Tensor, mask: torch.Tensor, connectivity: int) -> torch.Tensor:
+    """One hook + pointer-jump round of (B, H, W) labels (the reference's
+    ``connected_components`` body): the neighbourhood min, every pixel's
+    best neighbour label hooked into its current root (a scatter-min), the
+    neighbour min adopted, two pointer jumps."""
+    B, H, W = lbl.shape
+    hw = H * W
+    big = torch.full((), _BIG, dtype=torch.int32, device=lbl.device)
+    nflat = torch.where(mask, _neighbor_min(lbl, connectivity), big).reshape(B, hw)
+    flat = lbl.reshape(B, hw)
+    valid = flat < _BIG
+    roots = torch.where(valid, flat.clamp(0, hw - 1), hw - 1).to(torch.int64)
+    flat = flat.scatter_reduce(1, roots, torch.where(valid, nflat, big), "amin")
+    flat = torch.minimum(flat, nflat)
+    return _jump(_jump(flat, hw), hw).reshape(B, H, W)
+
+
+def _pixel_ids(mask: torch.Tensor) -> torch.Tensor:
+    """Each foreground pixel's flat index, ``_BIG`` on the background."""
+    B, H, W = mask.shape
+    iota = torch.arange(H * W, dtype=torch.int32, device=mask.device).reshape(1, H, W)
+    return torch.where(mask, iota, torch.full((), _BIG, dtype=torch.int32, device=mask.device))
+
+
 def connected_components(mask: torch.Tensor, connectivity: int = 1, n_iter: int = 24) -> torch.Tensor:
     """Label the connected foreground of each (B, H, W) mask.
 
-    The reference's ``n_iter`` rounds exactly, converged or not: each takes
-    the neighbourhood min, hooks every pixel's best neighbour label into
-    its current root (a scatter-min), adopts the neighbour min and jumps
-    pointers twice. A finished component carries the flat index of its
-    smallest pixel + 1 (background 0); a component that ``n_iter`` rounds
-    do not finish keeps the reference's partial ids."""
-    B, H, W = mask.shape
-    hw = H * W
+    The reference's ``n_iter`` hook + pointer-jump rounds exactly, converged
+    or not. A finished component carries the flat index of its smallest
+    pixel + 1 (background 0); a component that ``n_iter`` rounds do not
+    finish keeps the reference's partial ids."""
     mask = mask.to(torch.bool)
-    iota = torch.arange(hw, dtype=torch.int32, device=mask.device).reshape(1, H, W)
-    big = torch.full((), _BIG, dtype=torch.int32, device=mask.device)
-    lbl = torch.where(mask, iota, big)
+    lbl = _pixel_ids(mask)
     for _ in range(n_iter):
-        nflat = torch.where(mask, _neighbor_min(lbl, connectivity), big).reshape(B, hw)
-        flat = lbl.reshape(B, hw)
-        valid = flat < _BIG
-        roots = torch.where(valid, flat.clamp(0, hw - 1), hw - 1).to(torch.int64)
-        flat = flat.scatter_reduce(1, roots, torch.where(valid, nflat, big), "amin")
-        flat = torch.minimum(flat, nflat)
-        lbl = _jump(_jump(flat, hw), hw).reshape(B, H, W)
+        lbl = _hook_round(lbl, mask, connectivity)
+    return torch.where(mask, lbl + 1, torch.zeros((), dtype=torch.int32, device=mask.device))
+
+
+def connected_components_hybrid(mask: torch.Tensor, connectivity: int = 2, n_local: int = 8,
+                                max_hook: int = 64) -> torch.Tensor:
+    """Connected components of each (B, H, W) mask for mostly-small
+    components, with the reference's ids (min pixel index + 1).
+
+    Phase 1: ``n_local`` rounds of neighbour-min propagation. Phase 2: one
+    hook + pointer-jump round, then more while any label still changes, at
+    most ``max_hook`` rounds in all (the reference's ``while_loop``; a
+    round on a finished image changes nothing, so a batch runs until its
+    last image is done). Each phase-2 round reads its change flag on the
+    host."""
+    mask = mask.to(torch.bool)
+    big = torch.full((), _BIG, dtype=torch.int32, device=mask.device)
+    lbl = _pixel_ids(mask)
+    for _ in range(n_local):
+        lbl = torch.where(mask, _neighbor_min(lbl, connectivity), big)
+    for _ in range(max(1, max_hook)):
+        new = _hook_round(lbl, mask, connectivity)
+        changed = bool((new != lbl).any())
+        lbl = new
+        if not changed:
+            break
     return torch.where(mask, lbl + 1, torch.zeros((), dtype=torch.int32, device=mask.device))
 
 

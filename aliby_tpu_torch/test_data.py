@@ -3,19 +3,26 @@ inputs without JAX: copies of ``aliby_tpu/test_data.render_cells``, of the
 bench's five-channel Cell Painting field builder, of the yeast time-lapse
 (``yeast_timelapse``, the ``yeast_zarr`` fixture's generator) and the
 budding-yeast movie, and a bright-field ALCATRAS-like trap field
-(``render_trap_field``, the renderer of ``tests/test_trap_hardening.py``).
+(``render_trap_field``, the renderer of ``tests/test_trap_hardening.py``),
+and the dense touching label maps of the dynamics parity gates and the
+bench's dense workload (``render_dense_cells``).
 
-:func:`get_dataset_path` makes (once) the JAX package's Cell Painting
-fixtures with the same pixels: ``cellpainting_zarr`` (a zarr store of two
-CYX positions, written with the port's ``io.zarrlite``) and
-``crop_cellpainting_256`` (a TIFF directory, PIL imported where it is
-written), under the port's own cache directory
-(``$ALIBY_TPU_TORCH_FIXTURES``, else ``~/.cache/aliby_tpu_torch/fixtures``).
+:func:`get_dataset_path` makes (once) each of the JAX package's fixtures
+with the same pixels, under the port's own cache directory
+(``$ALIBY_TPU_TORCH_FIXTURES``, else ``~/.cache/aliby_tpu_torch/fixtures``):
+``crop_cellpainting_256`` (a TIFF directory), ``cellpainting_zarr`` and
+``cellpainting_zarr_jxl`` (zarr stores of two CYX positions, zlib and
+lossless JPEG-XL chunks), ``yeast_tiff`` (a TIFF a plane), ``yeast_multitiff``
+(a multi-page TIFF a position) and ``yeast_zarr`` (TCZYX stores); TIFFs are
+written with PIL, imported where it writes, zarr stores with the port's
+``io.zarrlite``. :func:`get_data_root` makes them all.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -72,6 +79,56 @@ def render_cells(
     if with_nucleus_labels:
         return cells, nuclei, labels, nuc_labels
     return cells, nuclei, labels
+
+
+def render_dense_cells(
+    size: int,
+    n_cells: int,
+    rng: np.random.Generator,
+    rmin: float = 3.0,
+    rmax: float = 12.0,
+) -> np.ndarray:
+    """Densely packed touching ellipses -> (size, size) int32 label map.
+
+    Unlike :func:`render_cells` this allows objects to touch (centers may be
+    as close as the sum of minor radii x ~0.9), producing the dense-field
+    regime the flow-dynamics parity gate exercises (touching boundaries are
+    exactly where basin assignment is decided). Later objects claim only
+    unlabeled pixels, so earlier objects keep their full extent.
+    """
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    labels = np.zeros((size, size), np.int32)
+    centers: list[tuple[float, float, float]] = []
+    placed = 0
+    attempts = 0
+    while placed < n_cells and attempts < n_cells * 60:
+        attempts += 1
+        a = float(rng.uniform(rmin, rmax))
+        b = float(rng.uniform(rmin, min(rmax, a)))
+        m = a + 2
+        if size - m <= m:
+            continue
+        cy, cx = rng.uniform(m, size - m, 2)
+        if centers:
+            cs = np.array([(y, x) for y, x, _ in centers])
+            rs = np.array([r for _, _, r in centers])
+            d = np.hypot(cs[:, 0] - cy, cs[:, 1] - cx)
+            # touching allowed; heavy overlap (deeper than ~55% of the
+            # smaller radius) rejected so every object keeps a core
+            if np.any(d < 0.55 * (rs + b)):
+                continue
+        theta = rng.uniform(0, np.pi)
+        ct, st = np.cos(theta), np.sin(theta)
+        u = (xx - cx) * ct + (yy - cy) * st
+        v = -(xx - cx) * st + (yy - cy) * ct
+        inside = (u / a) ** 2 + (v / b) ** 2 <= 1.0
+        fresh = inside & (labels == 0)
+        if fresh.sum() < 9:
+            continue
+        placed += 1
+        labels[fresh] = placed
+        centers.append((cy, cx, b))
+    return labels
 
 
 def cellpainting_fields(n_fovs: int, size: int = 256, seed: int = 7,
@@ -401,6 +458,32 @@ DATASETS = {
         "channels": dict(CP_CHANNELS),
         "kind": "zarr",
     },
+    "yeast_tiff": {
+        "name": "yeast_tiff",
+        "regex": r".*__([0-9])__T([0-9]+)__C([0-9])__Z([0-9])\.tif",
+        "capture_order": "FTCZ",
+        "channels": {"Brightfield": 0, "GFP": 1, "mCherry": 2},
+        "kind": "tiff_dir",
+    },
+    "yeast_multitiff": {
+        "name": "yeast_multitiff",
+        "capture_order": "TCZYX",
+        "channels": {"Brightfield": 0, "GFP": 1, "mCherry": 2},
+        "kind": "multitiff",
+    },
+    "yeast_zarr": {
+        "name": "yeast_zarr",
+        "capture_order": "TCZYX",
+        "channels": {"Brightfield": 0, "GFP": 1, "mCherry": 2},
+        "kind": "zarr",
+    },
+    "cellpainting_zarr_jxl": {
+        # cellpainting_zarr's pixels in lossless JPEG-XL chunks (io/jxl.py)
+        "name": "cellpainting_zarr_jxl",
+        "capture_order": "CYX",
+        "channels": dict(CP_CHANNELS),
+        "kind": "zarr",
+    },
 }
 
 
@@ -421,28 +504,75 @@ def _channel_stack(size: int, n_cells: int, seed: int, n_channels: int = 5):
     return out, labels
 
 
-def _build_crop_cellpainting_256(root: Path) -> None:
+def _write_tiff(path: Path, arr: np.ndarray) -> None:
     from PIL import Image
 
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(arr).save(str(path))
+
+
+def _write_multipage_tiff(path: Path, pages: list[np.ndarray]) -> None:
+    from PIL import Image
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    imgs = [Image.fromarray(p) for p in pages]
+    imgs[0].save(str(path), save_all=True, append_images=imgs[1:])
+
+
+def _build_crop_cellpainting_256(root: Path) -> None:
     for wi, well in enumerate(["A01"]):
         for field in [1]:
             stack, _ = _channel_stack(256, 24, seed=100 + wi * 10 + field)
             for ch_name, ch_idx in CP_CHANNELS.items():
-                Image.fromarray(stack[ch_idx]).save(
-                    str(root / f"plate1__{well}__{field}__{ch_name}.tif"))
+                _write_tiff(root / f"plate1__{well}__{field}__{ch_name}.tif", stack[ch_idx])
 
 
-def _build_cellpainting_zarr(root: Path) -> None:
+def _build_cellpainting_zarr(root: Path, compressor: str = "zlib") -> None:
     from aliby_tpu_torch.io import zarrlite
 
     for wi, well in enumerate(["A01", "B02"]):
         stack, _ = _channel_stack(256, 24, seed=100 + wi * 10 + 1)
-        zarrlite.write_array(root / well, stack, chunks=(1, 256, 256))
+        zarrlite.write_array(root / well, stack, chunks=(1, 256, 256), compressor=compressor)
+
+
+def _build_cellpainting_zarr_jxl(root: Path) -> None:
+    _build_cellpainting_zarr(root, compressor="jpegxl")
+
+
+def _build_yeast_tiff(root: Path) -> None:
+    for field in (1, 2):
+        stack = yeast_timelapse(seed=40 + field, size=160)
+        T, C, Z = stack.shape[:3]
+        for t in range(T):
+            for c in range(C):
+                for z in range(Z):
+                    _write_tiff(root / f"pos__{field}__T{t:02d}__C{c}__Z{z}.tif", stack[t, c, z])
+
+
+def _build_yeast_multitiff(root: Path) -> None:
+    for field in (1, 2):
+        stack = yeast_timelapse(seed=40 + field, size=160)
+        T, C, Z = stack.shape[:3]
+        _write_multipage_tiff(root / f"pos{field}.tif",
+                              [stack[t, c, z] for t in range(T) for c in range(C)
+                               for z in range(Z)])
+
+
+def _build_yeast_zarr(root: Path) -> None:
+    from aliby_tpu_torch.io import zarrlite
+
+    for field in (1, 2):
+        zarrlite.write_array(root / f"pos{field}", yeast_timelapse(seed=40 + field, size=293),
+                             chunks=(1, 1, 1, 293, 293))
 
 
 _BUILDERS = {
     "crop_cellpainting_256": _build_crop_cellpainting_256,
     "cellpainting_zarr": _build_cellpainting_zarr,
+    "yeast_tiff": _build_yeast_tiff,
+    "yeast_multitiff": _build_yeast_multitiff,
+    "yeast_zarr": _build_yeast_zarr,
+    "cellpainting_zarr_jxl": _build_cellpainting_zarr_jxl,
 }
 
 
@@ -453,15 +583,33 @@ def get_dataset(name: str) -> dict:
 
 
 def get_dataset_path(name: str) -> Path:
-    """Generate (once) and return the root path of a synthetic dataset."""
+    """Generate (once) and return the root path of a synthetic dataset. It
+    is written under a temporary name and renamed into place, so processes
+    that make it at once never read one half written."""
     entry = get_dataset(name)
     root = fixtures_root() / entry["name"]
-    marker = root / ".complete"
-    if not marker.exists():
-        root.mkdir(parents=True, exist_ok=True)
-        _BUILDERS[name](root)
-        marker.write_text("ok")
+    if (root / ".complete").exists():
+        return root
+    tmp = root.with_name(f"{root.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    _BUILDERS[name](tmp)
+    (tmp / ".complete").write_text("ok")
+    try:
+        os.rename(tmp, root)
+    except OSError:  # made meanwhile by another process, or left unfinished
+        if not (root / ".complete").exists():
+            shutil.rmtree(root)
+            os.rename(tmp, root)
+        shutil.rmtree(tmp, ignore_errors=True)
     return root
+
+
+def get_data_root() -> Path:
+    """Generate all datasets and return the shared fixtures root."""
+    for name in DATASETS:
+        get_dataset_path(name)
+    return fixtures_root()
 
 
 # ---------------------------------------------------------------------------

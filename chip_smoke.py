@@ -84,7 +84,7 @@ Phases, in order; any failure exits non-zero:
    step's fields/s, stage breakdown and peak memory, the default bank's
    device idle share; the ``kernels`` JSON line (six kernels, launches counted
    over one default-bank step, and a seventh row: the trackers'
-   intersection count, phase 5's); the card's name and power limit;
+   intersection count, phase 5's; later phases add theirs); the card's name and power limit;
    and, last, ``{"ok": true, "device": {...}}``.
 5. runner (slice 4): 2 positions x 7 timepoints x 5 channels x 1 z x
    1080x1080 uint16 (``test_data.cellpainting_movie``: cells drift, a few
@@ -179,6 +179,28 @@ Phases, in order; any failure exits non-zero:
    targets on the card, host render ms a batch, the device idle share of 3
    steps, and a ``utils.profiling.trace`` of 2 steps whose ``annotate``
    names are found in the profile.
+9. example 01 from a TIFF plate (slice 8): (a) g++ builds the port's native
+   TIFF decoder (``aliby_tpu_torch.native.build``, its own copy of the
+   source, into ``build/aliby_tpu_torch/``; the deflate case is compiled
+   out where the host has no ``<zlib.h>``, and the plate is then written
+   uncompressed); (b) a plate of 2 wells x 2 fields x 5 channels of
+   1080^2 uint16 (``cellpainting_large_field``, seeds 21-24), a file a
+   plane named by example 01's convention, written by this script's
+   baseline-TIFF writer (``write_tiff``: strips of 64 to 256 rows, every
+   other file deflate, every third big-endian); (c) every plane decoded
+   by ``tiff_decode`` and ``tiff_decode_batch`` bit-equal to the array
+   written, ms a plane of each; (d) ``DatasetDir`` finds 4 positions;
+   example 01's pipeline (intensity and sizeshape, the cellpose kind with
+   the bundled weights, compiled) through ``run_positions_mesh_states``
+   and ``run_pipeline_return_state`` a position: kernels 1-5 launched,
+   every read of the data plane a native decode, mesh == per position
+   (profile columns, NaN equal), the golden example-01 column set; (e)
+   position 0's pixels in a zlib zarr store give its profile bit for bit,
+   (f) and in a JPEG-XL one where the host has libjxl (else "jxl: libjxl
+   not found on this host"); neither imageio nor PIL imported; (g) fields/s
+   of each path, peak memory, the device idle share of one mesh call, and
+   kernels 1-5 timed at the mesh call's (8, 1080, 1080) shapes, rows
+   "... (TIFF plate)" of the ``kernels`` line.
    Each phase prints its seconds.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -239,6 +261,11 @@ REPLACES = {
     "binned_minmax_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched (CPnet mesh)": "aliby_tpu/ops/pallas_segsum.py:302",
     "diffuse_heat (training targets)": "aliby_tpu/ops/pallas_stencil.py:182",
+    "successor_prop (TIFF plate)": "aliby_tpu/ops/pallas_stencil.py:115",
+    "diffuse_heat (TIFF plate)": "aliby_tpu/ops/pallas_stencil.py:182",
+    "binned_sum_cols_batched (TIFF plate)": "aliby_tpu/ops/pallas_segsum.py:234",
+    "binned_minmax_batched (TIFF plate)": "aliby_tpu/ops/pallas_segsum.py:251",
+    "table_lookup_batched (TIFF plate)": "aliby_tpu/ops/pallas_segsum.py:302",
 }
 SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
 DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
@@ -1515,6 +1542,31 @@ MAIN_KERNELS = ("successor_prop", "diffuse_heat", "binned_sum_cols_batched",
                 "binned_minmax_batched", "table_lookup_batched")
 
 
+def main_wrappers() -> dict:
+    """The wrappers of kernels 1-5 (the main path's), by name."""
+    from aliby_tpu_torch.ops import segsum, stencil
+
+    return {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
+            "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+            "binned_minmax_batched": segsum.binned_minmax_batched,
+            "table_lookup_batched": segsum.table_lookup_batched}
+
+
+def mesh_call_recorders() -> dict:
+    """Recorders of the first call of kernels 1-5 in a fused mesh call: the
+    stencils, the flow-error QC's sums (3 columns, 257 bins), the first
+    min/max and lookup."""
+    from aliby_tpu_torch.extract import reductions
+    from aliby_tpu_torch.models import flows
+
+    return {"successor_prop": Recorder(flows, "successor_prop"),
+            "diffuse_heat": Recorder(flows, "diffuse_heat"),
+            "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched",
+                                                lambda v, b, n: n == 257 and v.shape[-1] == 3),
+            "binned_minmax_batched": Recorder(reductions, "binned_minmax_batched"),
+            "table_lookup_batched": Recorder(reductions, "table_lookup_batched")}
+
+
 def runner_pipeline(ntps: int) -> dict:
     """Phase 5's pipeline: the default bank, a stitch tracker per object,
     mono tile, compiled, the segment and tracker steps saved."""
@@ -1584,17 +1636,14 @@ def runner_phase(dev, size=RUNNER_SIZE, ntps=RUNNER_TPS, n_pos=RUNNER_POS,
     from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
     from aliby_tpu_torch.io import zarrlite
     from aliby_tpu_torch.io.dataset import DatasetZarr
-    from aliby_tpu_torch.ops import segsum, stencil
+    from aliby_tpu_torch.ops import segsum
     from aliby_tpu_torch.parallel.pipeline_mesh import plan_calls, run_positions_mesh_states
     from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
     from aliby_tpu_torch.pipe import init_step
     from aliby_tpu_torch.test_data import cellpainting_movie
     from aliby_tpu_torch.track import trackers
 
-    wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
-                "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
-                "binned_minmax_batched": segsum.binned_minmax_batched,
-                "table_lookup_batched": segsum.table_lookup_batched}
+    wrappers = main_wrappers()
     t0 = time.perf_counter()
     movie = cellpainting_movie(n_pos, ntps, size, seed=13)
     tmp = tempfile.TemporaryDirectory(prefix="aliby_runner_")
@@ -2194,9 +2243,7 @@ def same_labels_or_iou(got: list, want: list, what: str) -> str:
 def zoo_cpnet(dev, tmp, positions, movie, wrappers) -> dict:
     """Phase 7 (a): CPnet through the production runner."""
     from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
-    from aliby_tpu_torch.extract import reductions
     from aliby_tpu_torch.extract.tolerances import within_model_tolerance
-    from aliby_tpu_torch.models import flows
     from aliby_tpu_torch.models.cpnet import load_cellpose_checkpoint
     from aliby_tpu_torch.models.segment import CellposeTorch, _normalize_percentile
     from aliby_tpu_torch.parallel.pipeline_mesh import run_positions_mesh_states
@@ -2244,12 +2291,7 @@ def zoo_cpnet(dev, tmp, positions, movie, wrappers) -> dict:
 
     # kernels 1-5 at the mesh call's shapes: the stencils and the QC sums of
     # its 6 images (3 tps x 2 objects), a default-bank min/max and lookup
-    recs = {"successor_prop": Recorder(flows, "successor_prop"),
-            "diffuse_heat": Recorder(flows, "diffuse_heat"),
-            "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched",
-                                                lambda v, b, n: n == 257 and v.shape[-1] == 3),
-            "binned_minmax_batched": Recorder(reductions, "binned_minmax_batched"),
-            "table_lookup_batched": Recorder(reductions, "table_lookup_batched")}
+    recs = mesh_call_recorders()
     runs = {}
     for qc in (True, False):
         tag = "qc" if qc else "noqc"
@@ -2588,13 +2630,9 @@ def zoo_phase(dev) -> dict:
 
     from aliby_tpu_torch.io import zarrlite
     from aliby_tpu_torch.io.dataset import DatasetZarr
-    from aliby_tpu_torch.ops import segsum, stencil
     from aliby_tpu_torch.test_data import cellpainting_movie
 
-    wrappers = {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
-                "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
-                "binned_minmax_batched": segsum.binned_minmax_batched,
-                "table_lookup_batched": segsum.table_lookup_batched}
+    wrappers = main_wrappers()
     t0 = time.perf_counter()
     movie = cellpainting_movie(1, ZOO_TPS, ZOO_SIZE, seed=19)
     tmp = tempfile.TemporaryDirectory(prefix="aliby_zoo_")
@@ -2896,6 +2934,283 @@ def training_phase(dev) -> tuple[dict, dict]:
     return out, rows
 
 
+# ------------------------------------------------------------------ phase 9
+PLATE_SIZE = 1080  # JUMP's field size
+PLATE_WELLS, PLATE_FIELDS, PLATE_SEED = ("A01", "B02"), (1, 2), 21
+PLATE_STRIP_ROWS = (64, 100, 135, 256)  # rows a strip, by file: several strips a file
+TIFF_PLATE = " (TIFF plate)"
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def write_tiff(path, arr: np.ndarray, rows_per_strip: int, deflate: bool = False,
+               big_endian: bool = False) -> None:
+    """A baseline single-page TIFF of a 2-D uint8/uint16 array (numpy,
+    ``struct`` and ``zlib`` only): strips of ``rows_per_strip`` rows,
+    uncompressed or deflate (compression 8, a zlib stream a strip), little-
+    or big-endian (``II`` / ``MM``), black is zero."""
+    import struct
+    import zlib
+
+    e = ">" if big_endian else "<"
+    H, W = arr.shape
+    data = np.ascontiguousarray(arr, dtype=arr.dtype.newbyteorder(e))
+    strips = [data[y:y + rows_per_strip].tobytes() for y in range(0, H, rows_per_strip)]
+    if deflate:
+        strips = [zlib.compress(s) for s in strips]
+    offsets = list(np.cumsum([8] + [len(s) for s in strips[:-1]]))
+    ifd_at = 8 + sum(len(s) for s in strips)
+    ifd_at += ifd_at % 2  # the IFD starts on a word
+    entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [8 * arr.itemsize]),
+               (259, 3, [8 if deflate else 1]), (262, 3, [1]), (273, 4, offsets),
+               (277, 3, [1]), (278, 4, [rows_per_strip]), (279, 4, [len(s) for s in strips])]
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    ifd, extra = struct.pack(e + "H", len(entries)), b""
+    for tag, typ, vals in entries:
+        fmt = "H" if typ == 3 else "I"
+        packed = struct.pack(e + fmt * len(vals), *(int(v) for v in vals))
+        if len(packed) <= 4:
+            field = packed.ljust(4, b"\0")
+        else:
+            field = struct.pack(e + "I", extra_at + len(extra))
+            extra += packed
+        ifd += struct.pack(e + "HHI", tag, typ, len(vals)) + field
+    ifd += struct.pack(e + "I", 0)
+    body = b"".join(strips)
+    with open(path, "wb") as f:
+        f.write((b"MM" if big_endian else b"II") + struct.pack(e + "HI", 42, ifd_at) + body
+                + b"\0" * (ifd_at - 8 - len(body)) + ifd + extra)
+
+
+def tiff_plate(root: str, size: int, deflate: bool) -> dict:
+    """Example 01's plate: 2 wells x 2 fields x 5 channels of ``size``^2
+    uint16 (``cellpainting_large_field`` at ``rint(4096 x)``), a file a
+    plane named by example 01's convention; every other file deflate (where
+    ``deflate``), every third big-endian, strips of 64 to 256 rows. Returns
+    {path: (array, deflate, big-endian)}."""
+    from aliby_tpu_torch.test_data import CP_CHANNELS, cellpainting_large_field
+
+    written, i = {}, 0
+    for wi, well in enumerate(PLATE_WELLS):
+        for fi, field in enumerate(PLATE_FIELDS):
+            stack = cellpainting_large_field(size, seed=PLATE_SEED + 2 * wi + fi)[0, :, 0]
+            stack = np.clip(np.rint(stack * 4096), 0, 65535).astype(np.uint16)
+            for ch_name, ch in CP_CHANNELS.items():
+                path = os.path.join(root, f"plate1__{well}__{field}__{ch_name}.tif")
+                layout = (deflate and i % 2 == 1, i % 3 == 0)
+                write_tiff(path, stack[ch], PLATE_STRIP_ROWS[i % len(PLATE_STRIP_ROWS)], *layout)
+                written[path] = (stack[ch], *layout)
+                i += 1
+    return written
+
+
+def decode_checks(written: dict) -> dict:
+    """Every plane through ``tiff_decode`` and ``tiff_decode_batch``, bit-equal
+    to the array written; ms a plane of each (host clock, median of 3)."""
+    from aliby_tpu_torch import native
+
+    for path, (arr, deflate, big) in written.items():
+        got = native.tiff_decode(path)
+        if got is None or got.dtype != arr.dtype or not np.array_equal(got, arr):
+            raise AssertionError(f"tiff_decode({os.path.basename(path)}) != the array written "
+                                 f"(deflate {deflate}, big-endian {big})")
+    paths = list(written)
+    batch = native.tiff_decode_batch(paths)
+    if batch is None or not all(np.array_equal(b, written[p][0]) for b, p in zip(batch, paths)):
+        raise AssertionError("tiff_decode_batch != the arrays written")
+    ms = {}
+    for kind in (False, True):
+        group = [p for p, (_, d, _) in written.items() if d == kind]
+        if not group:
+            continue
+        name = "deflate" if kind else "uncompressed"
+        for what, fn in (("single", lambda: [native.tiff_decode(p) for p in group]),
+                         ("batch", lambda: native.tiff_decode_batch(group))):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3 / len(group))
+            ms[f"{what}_{name}"] = statistics.median(times)
+    return ms
+
+
+def tiff_plate_phase(dev, size=PLATE_SIZE) -> tuple[dict, dict]:
+    """Phase 9: example 01 from a TIFF plate, decoded by the port's native
+    decoder; returns (stats, kernel rows)."""
+    import tempfile
+
+    from aliby_tpu_torch import native
+    from aliby_tpu_torch.engine.builders import build_pipeline_steps
+    from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
+    from aliby_tpu_torch.io import image, jxl, zarrlite
+    from aliby_tpu_torch.io.dataset import DatasetDir, DatasetZarr
+    from aliby_tpu_torch.parallel.pipeline_mesh import run_positions_mesh_states
+    from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
+    from aliby_tpu_torch.pipe import init_step
+    from aliby_tpu_torch.test_data import DATASETS
+
+    stats = {}
+    # (a) the decoder, built from the checkout's source
+    t0 = time.perf_counter()
+    lib = native.build()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    zlib_ok = native.has_zlib()
+    log(f"[plate] (a) {gxx}; <zlib.h> {'found' if zlib_ok else 'NOT found: deflate compiled out'}"
+        f"; {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.1f} s")
+    if not native.available():
+        raise AssertionError("the native decoder was built but does not load")
+
+    # (b) the plate
+    tmp = tempfile.TemporaryDirectory(prefix="aliby_plate_")
+    plate = os.path.join(tmp.name, "plate")
+    os.makedirs(plate)
+    t0 = time.perf_counter()
+    written = tiff_plate(plate, size, deflate=zlib_ok)
+    mb = sum(a.nbytes for a, _, _ in written.values()) / 1e6
+    log(f"[plate] (b) {len(written)} TIFFs of {size}^2 uint16 ({mb:.1f} MB of pixels; "
+        f"{sum(d for _, d, _ in written.values())} deflate, "
+        f"{sum(b for _, _, b in written.values())} big-endian) in {time.perf_counter() - t0:.1f} s")
+
+    # (c) the decode, bit-equal and timed
+    stats["decode_ms_a_plane"] = decode_checks(written)
+    log("[plate] (c) tiff_decode and tiff_decode_batch bit-equal to the arrays written; ms a "
+        "plane (host clock): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                           stats["decode_ms_a_plane"].items()))
+
+    # (d) example 01 through the mesh and per position, every read counted
+    regex = DATASETS["crop_cellpainting_256"]["regex"]
+    positions = DatasetDir(plate, regex=regex, capture_order="WFC").get_position_ids()
+    if len(positions) != 4:
+        raise AssertionError(f"DatasetDir found {len(positions)} positions, want 4")
+    base = build_pipeline_steps(**EXAMPLE01)
+    base["compiled"] = True
+    wrappers = main_wrappers()
+    reads, lock, read = [0], threading.Lock(), image._read_image_file
+
+    def counted_read(path):
+        with lock:
+            reads[0] += 1
+        return read(path)
+
+    def mesh(tag):
+        entries, _ = run_positions_mesh_states(base, positions, os.path.join(tmp.name, tag),
+                                               regex=regex, capture_order="WFC", device=dev)
+        return [(e["pipeline"], e["state"]) for e in entries]
+
+    def per_position(tag):
+        return [(p, run_pipeline_return_state(p, os.path.join(tmp.name, tag, p["io"]["input_path"]
+                                                              ["key"]), init_step, device=dev))
+                for p in (stamp_image_kwargs(base, pos, regex=regex, capture_order="WFC")
+                          for pos in positions)]
+
+    recs = mesh_call_recorders()
+    run_pipeline_return_state(stamp_image_kwargs(base, positions[0], regex=regex,
+                                                 capture_order="WFC"),
+                              os.path.join(tmp.name, "warm-up"), init_step, device=dev)
+    decodes0 = native.decodes
+    image._read_image_file = counted_read
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        with recording(recs.values()):
+            t0 = time.perf_counter()
+            mesh_runs = mesh("mesh")
+            sync()
+            t_mesh = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        per_runs = per_position("per")
+        sync()
+        t_per = time.perf_counter() - t0
+    finally:
+        image._read_image_file = read
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"example 01 on the TIFF plate did not launch {missing} ({launches})")
+    n_decodes = native.decodes - decodes0
+    if n_decodes != reads[0] or reads[0] < 2 * len(written):
+        raise AssertionError(f"{reads[0]} reads of the data plane, {n_decodes} native decodes "
+                             f"({len(written)} files, two runs)")
+    stats.update(fields_per_s={"mesh": len(positions) / t_mesh,
+                               "per_position": len(positions) / t_per},
+                 launches=launches, reads=reads[0], native_decodes=n_decodes)
+    log(f"[plate] (d) {len(positions)} positions {[p['key'] for p in positions]}: mesh "
+        f"{t_mesh:.2f} s ({len(positions) / t_mesh:.3f} fields/s), per position {t_per:.2f} s "
+        f"({len(positions) / t_per:.3f} fields/s), peak device memory {stats['peak_gb']:.3f} GB "
+        f"(the mesh run); {reads[0]} reads by the data plane = {n_decodes} native decodes; "
+        f"launches in the mesh run {launches}")
+    with open(os.path.join(ROOT, "tests", "golden", FUSED_PATHS["example-01"][2])) as f:
+        golden = {c for c in f.read().splitlines() if c and not c.startswith("metadata_")}
+    profiles = []
+    for (pm, sm), (pp, sp) in zip(mesh_runs, per_runs):
+        key = pp["io"]["input_path"]["key"]
+        cols = profile_columns(sp, pp)
+        if not same_columns(profile_columns(sm, pm), cols):
+            raise AssertionError(f"{key}: the mesh's profile columns != the per-position run's")
+        names = {c for c in cols if not c.startswith("metadata_")}
+        if names != golden or not len(cols["metadata_tile"]):
+            raise AssertionError(f"{key}: {len(names)} profile columns, {len(golden)} golden "
+                                 f"example-01 columns; {len(cols['metadata_tile'])} rows")
+        profiles.append(cols)
+    log(f"[plate] (d) mesh == per position: {len(golden)} profile columns (the golden example-01 "
+        f"set) x {[len(c['metadata_tile']) for c in profiles]} rows (NaN equal)")
+
+    # (e) one position's pixels, read back through the data plane, in a zlib zarr
+    # store, and (f) in a JPEG-XL one where the host has libjxl: the same profile
+    img = image.dispatch_image(positions[0])(positions[0], regex=regex, capture_order="WFC")
+    pixels = np.asarray(img.get_data_lazy()[0, :, 0])  # (C, Y, X)
+    want = np.stack([written[p][0] for p in positions[0]["path"]])
+    if not np.array_equal(pixels, want):
+        raise AssertionError("the image layer's pixels of position 0 != the arrays written")
+    codecs = ["zlib"] + ["jpegxl"] * jxl.available()
+    for codec in codecs:
+        store = os.path.join(tmp.name, f"store_{codec}")
+        zarrlite.write_array(os.path.join(store, positions[0]["key"]), pixels,
+                             chunks=(1, size, size), compressor=codec)
+        zpos = DatasetZarr(store).get_position_ids()[0]
+        if not np.array_equal(zarrlite.ZarrArray(zpos["path"])[:], pixels):
+            raise AssertionError(f"the {codec} zarr store's pixels != the TIFFs'")
+        pipe = stamp_image_kwargs(base, zpos, capture_order="CYX")
+        st = run_pipeline_return_state(pipe, os.path.join(tmp.name, f"z_{codec}"), init_step,
+                                       device=dev)
+        if not same_columns(profile_columns(st, pipe), profiles[0]):
+            raise AssertionError(f"{positions[0]['key']}: the {codec} zarr profile != the TIFF's")
+        log(f"[plate] ({'e' if codec == 'zlib' else 'f'}) {positions[0]['key']} from a {codec} "
+            f"zarr store: the same pixels and profile columns as from its TIFFs")
+    if not jxl.available():
+        log("[plate] (f) jxl: libjxl not found on this host")
+    stats["jxl"] = jxl.available()
+    loaded = [m for m in ("imageio", "PIL") if m in sys.modules]
+    if loaded:
+        raise AssertionError(f"the TIFF plate's path imported {loaded}")
+
+    # (g) the idle share of one mesh call, the kernels at the mesh call's shapes
+    stats["idle"] = device_share(lambda: mesh("idle"), f"the example-01 mesh call, "
+                                 f"{len(positions)} fields of {size}^2", warmup=False,
+                                 host_ops=False)
+    missing = [k for k, r in recs.items() if r.args is None]
+    if missing:
+        raise AssertionError(f"no call of {missing} was recorded in the mesh run")
+    log(f"[report] kernels 1-5 at the TIFF plate's mesh call's shapes (launches: the mesh run; "
+        f"{card()}):")
+    rows = {}
+    for name, row in measure_kernels({k: r.args for k, r in recs.items()}, launches).items():
+        row["name"] = name + TIFF_PLATE
+        rows[name + TIFF_PLATE] = row
+    log(f"[plate] {card()}: " + json.dumps(stats))
+    tmp.cleanup()
+    return stats, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3113,14 +3428,17 @@ def main() -> int:
     rows.update(train_rows)
     phase_done("8 (training)")
 
+    # ------------------------------------------------- 9 example 01 from a TIFF plate
+    plate, plate_rows = tiff_plate_phase(dev)
+    rows.update(plate_rows)
+    phase_done("9 (example 01 from a TIFF plate)")
+
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},
                     "fused example-01": ex01_stats, "fused default bank": fused_stats,
-                    "zoo": zoo, "training": training}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+                    "zoo": zoo, "training": training, "tiff plate": plate}))
     print(json.dumps({"kernels": [rows[name] for name in REPLACES]}), flush=True)
-    print(smi.splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

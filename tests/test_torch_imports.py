@@ -3,7 +3,9 @@
 and none imports ``pyarrow``, ``yaml``, ``PIL``, ``imageio``, ``pandas`` or
 ``h5py`` when it is imported (the GPU hosts of the port have none of them:
 the functions that write or read parquet, read or write yaml, decode TIFFs,
-make data frames or open HDF5 files import them inside)."""
+make data frames or open HDF5 files import them inside). The native TIFF
+decoder and the JPEG-XL codec neither compile nor load a library when they
+are imported."""
 
 import ast
 from pathlib import Path
@@ -33,7 +35,8 @@ def test_files_found():
     for module in ("models/training.py", "models/unet.py", "models/weights.py",
                    "utils/profiling.py", "postprocess/cells.py", "postprocess/signal.py",
                    "postprocess/indexing.py", "postprocess/progress.py", "logparse/grammar.py",
-                   "logparse/swainlab.py", "logparse/metadata.py", "io/h5compat.py"):
+                   "logparse/swainlab.py", "logparse/metadata.py", "io/h5compat.py",
+                   "native/__init__.py", "io/jxl.py"):
         assert f"aliby_tpu_torch/{module}" in scanned, module
 
 
@@ -77,3 +80,30 @@ def test_no_module_level_yaml_pil_or_imageio(path):
         for name in names:
             assert name.split(".")[0] not in HOST_ONLY, (
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name} at import time")
+
+
+def test_native_and_jxl_build_and_load_nothing_at_import():
+    """In a fresh interpreter, importing ``native`` and ``io.jxl`` starts no
+    process and loads neither library (torch, imported with them, loads its
+    own)."""
+    import subprocess
+    import sys
+
+    code = """
+import ctypes, subprocess, sys
+calls = []
+for mod, name in ((subprocess, "run"), (subprocess, "Popen"), (ctypes, "CDLL")):
+    real = getattr(mod, name)
+    setattr(mod, name, lambda *a, _n=name, _r=real, **k: (calls.append((_n, str(a[:1]))),
+                                                           _r(*a, **k))[1])
+sys.path.insert(0, sys.argv[1])
+from aliby_tpu_torch import native
+from aliby_tpu_torch.io import jxl
+ours = [c for c in calls if c[0] != "CDLL" or "aliby_host" in c[1] or "jxl" in c[1]]
+assert not ours, ours
+assert native._lib is None and not native._tried and native.decodes == 0
+assert jxl._lib.cache_info().currsize == 0
+"""
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -4,7 +4,8 @@ zarr round trips (raw, zlib, ragged chunks, groups, v3 gzip, blosc memcpy
 frames, lz4), ``LazyView`` indexing through ``adjust_dimensions``,
 ``ImageZarr``/``ImageList``/``ImageDir`` frames, ``DatasetDir``/``DatasetZarr``
 discovery and the per-tp ``.npz`` saves: equal arrays, equal position lists,
-equal files. JPEG-XL chunks raise, naming their ROADMAP item.
+equal files. JPEG-XL chunks decode (``tests/test_torch_jxl.py`` holds the
+codec), or raise the reference's error where the host has no libjxl.
 """
 
 import gzip
@@ -64,7 +65,8 @@ def _v2_node(tmp_path, name, arr, compressor, payload):
 
 def test_codecs(tmp_path):
     """v3 with gzip, a blosc memcpy frame, lz4 (pyarrow, imported where the
-    block is decoded); jpegxl raises."""
+    block is decoded); jpegxl decodes and is written, or raises the
+    reference's RuntimeError without libjxl (and imagecodecs)."""
     import pyarrow as pa
 
     arr = np.arange(24, dtype="<i4").reshape(4, 6)
@@ -93,11 +95,19 @@ def test_codecs(tmp_path):
     for path, want in ((node, arr), (blosc, small), (lz4, arr)):
         np.testing.assert_array_equal(zarrlite.ZarrArray(path)[:], want)
         np.testing.assert_array_equal(jax_zarrlite.ZarrArray(path)[:], want)
-    jxl = _v2_node(tmp_path, "jxl", small, {"id": "jpegxl"}, b"\xff\x0a")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        zarrlite.ZarrArray(jxl)[:]
-    with pytest.raises(NotImplementedError, match="io/jxl.py"):
+    from aliby_tpu_torch.io import jxl as jxl_codec
+
+    if jxl_codec.available():
+        jxl = _v2_node(tmp_path, "jxl", small, {"id": "jpegxl"}, jxl_codec.encode(small))
+        np.testing.assert_array_equal(zarrlite.ZarrArray(jxl)[:], small)
+        np.testing.assert_array_equal(jax_zarrlite.ZarrArray(jxl)[:], small)
         zarrlite.write_array(tmp_path / "w", small, compressor="jpegxl")
+        np.testing.assert_array_equal(zarrlite.ZarrArray(tmp_path / "w")[:], small)
+    else:
+        jxl = _v2_node(tmp_path, "jxl", small, {"id": "jpegxl"}, b"\xff\x0a")
+        for z in (zarrlite.ZarrArray(jxl), jax_zarrlite.ZarrArray(jxl)):
+            with pytest.raises(RuntimeError, match="JPEG-XL.*libjxl"):
+                z[:]
 
 
 def test_lazy_views_and_adjust_dimensions():
