@@ -63,6 +63,25 @@ def try_compile(pipeline: dict, tiler=None, init_step_fn=None, *,
     return compiled
 
 
+def try_compile_sharded(pipeline: dict, devices) -> "tuple[list[CompiledStep], object] | None":
+    """The compiled step of ``pipeline`` on each of ``devices`` (a device
+    may repeat: its shards share one compiled step) and an
+    :class:`~aliby_tpu_torch.engine.fused.ShardedStep` over their fused
+    steps, with a sticky state of its own that starts at the steps'
+    initial width. Returns ``(the CompiledStep of each shard, the sharded
+    step)``, or ``None`` when the pipeline is not eligible."""
+    from aliby_tpu_torch.engine.fused import ShardedStep
+
+    by_device = {}
+    for d in devices:
+        if str(d) not in by_device:
+            by_device[str(d)] = try_compile(pipeline, device=d)
+    steps = [by_device[str(d)] for d in devices]
+    if steps[0] is None:
+        return None
+    return steps, ShardedStep([s.fused for s in steps])
+
+
 def _try_compile_uncached(pipeline: dict, device) -> "CompiledStep | None":
     steps = pipeline["steps"]
     seg_names = [n for n in steps if n.startswith("segment")]

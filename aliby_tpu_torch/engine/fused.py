@@ -154,9 +154,11 @@ def compile_fused_step(objects: Sequence[FusedObject], max_labels: int = 256,
                 all_feats[oi][ti] = (names, arr[:, j * F:(j + 1) * F])
         return all_feats
 
-    def dispatch(pixels):
-        """Run the step on the device; returns a handle whose tensors
-        :func:`collect` reads back."""
+    def segment_phase(pixels):
+        """The step's first half: the pixel block on the device and its
+        labels. Returns ``(seg, lmax)``: what :func:`features_phase` takes,
+        and the largest realised label (read back: the sticky width needs
+        it before the trees run)."""
         if not isinstance(pixels, torch.Tensor):
             pixels = torch.from_numpy(np.ascontiguousarray(np.asarray(pixels, np.float32)))
         if pixels.dim() == 6:
@@ -165,17 +167,26 @@ def compile_fused_step(objects: Sequence[FusedObject], max_labels: int = 256,
         with torch.no_grad():
             all_labels = segment(pixels)
             labels_pack = torch.stack(all_labels)
-            lmax = int(labels_pack.max())
-            # realised objects past the tree width (or uint8): widen, stay wide
-            if lmax > state["cap"]:
-                state["cap"] = max_labels
-            state["u8"] = state["u8"] and lmax <= 255
-            feats = features(pixels, all_labels, state["cap"])
+            return (pixels, all_labels, labels_pack), int(labels_pack.max())
+
+    def features_phase(seg, cap: int, u8: bool):
+        """The step's second half at tree width ``cap``: a handle whose
+        tensors :func:`collect` reads back."""
+        pixels, all_labels, labels_pack = seg
+        with torch.no_grad():
+            feats = features(pixels, all_labels, cap)
             flat = [a for per_obj in feats for _, a in per_obj]
             feats_pack = (torch.cat(flat) if flat
-                          else torch.zeros(0, pixels.shape[0], state["cap"], device=device))
+                          else torch.zeros(0, pixels.shape[0], cap, device=device))
             names = [[n for n, _ in per_obj] for per_obj in feats]
-            return _pack_labels(labels_pack, state["u8"]), feats_pack, names
+            return _pack_labels(labels_pack, u8), feats_pack, names
+
+    def dispatch(pixels):
+        """Run the step on the device; returns a handle whose tensors
+        :func:`collect` reads back."""
+        seg, lmax = segment_phase(pixels)
+        widen(state, lmax, max_labels)
+        return features_phase(seg, state["cap"], state["u8"])
 
     def collect(handle):
         """Read back one dispatch's results and unpack them per object."""
@@ -207,8 +218,151 @@ def compile_fused_step(objects: Sequence[FusedObject], max_labels: int = 256,
     run.dispatch = dispatch
     run.collect = collect
     run.device_labels = device_labels
+    run.segment_phase = segment_phase
+    run.features_phase = features_phase
     run.state = state
+    run.initial_state = dict(state)
+    run.device = device
+    run.max_labels = max_labels
     return run
+
+
+def widen(state: dict, lmax: int, max_labels: int) -> None:
+    """The sticky transition: realised objects past the tree width widen it
+    to ``max_labels`` for good; past 255 the labels are read back as uint16
+    from then on."""
+    if lmax > state["cap"]:
+        state["cap"] = max_labels
+    state["u8"] = state["u8"] and lmax <= 255
+
+
+class ShardedStep:
+    """One fused step over dp shards, each a fused step
+    (:func:`compile_fused_step`) on its own device; a device may appear
+    more than once (two shards on one card, each on its own stream).
+
+    ``dispatch(blocks)`` takes one pixel block a shard and runs
+    segmentation on every shard, each in its own host thread with its
+    device current and on its own stream; then it widens the one shared
+    sticky ``state`` once by the largest label over all shards, and runs
+    the feature trees of every shard at that common width. This is the
+    reference's rule on the global batch: a state per shard would let the
+    shards disagree on the width and widen at different timepoints.
+    ``collect(handles)`` reads the shards back and concatenates them in
+    shard order. A single shard runs on the calling thread and its current
+    stream, exactly as :func:`compile_fused_step`'s ``dispatch``. The
+    sticky ``state`` is the sharded step's own and starts as the first
+    shard's step started (its ``initial_state``).
+
+    A block given as host memory is copied to its device on the shard's
+    stream; a block already on the card is marked as used by that stream
+    (``record_stream``), so the caller may drop it at once.
+
+    ``shard_launches[i]`` counts the kernel launches that shard ``i``'s
+    thread made, by wrapper name (:func:`aliby_tpu_torch.kernels._build.
+    tally`)."""
+
+    def __init__(self, runs: Sequence):
+        if not runs:
+            raise ValueError("a sharded step needs at least one shard")
+        if any(run.max_labels != runs[0].max_labels for run in runs):
+            raise ValueError("every shard must label at one max_labels")
+        self.runs = list(runs)
+        self.devices = [run.device for run in runs]
+        self.max_labels = runs[0].max_labels
+        self.state = dict(runs[0].initial_state)
+        multi = len(runs) > 1
+        self.streams = [torch.cuda.Stream(d) if multi and d.type == "cuda" else None
+                        for d in self.devices]
+        self.shard_launches: list[dict[str, int]] = [{} for _ in runs]
+        self._pool = None
+        if multi:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=len(runs),
+                                            thread_name_prefix="fused-shard")
+
+    def _in_shard(self, i: int, wait, fn, args):
+        from contextlib import ExitStack
+
+        from aliby_tpu_torch.kernels import _build
+
+        with ExitStack() as stack:
+            if self.devices[i].type == "cuda":
+                stack.enter_context(torch.cuda.device(self.devices[i]))
+                if self.streams[i] is not None:
+                    if wait is not None:
+                        self.streams[i].wait_stream(wait)
+                    stack.enter_context(torch.cuda.stream(self.streams[i]))
+            counts = stack.enter_context(_build.tally())
+            try:
+                return fn(*args)
+            finally:
+                for name, n in counts.items():
+                    self.shard_launches[i][name] = self.shard_launches[i].get(name, 0) + n
+
+    def map(self, fn, per_shard: Sequence, wait: bool = False, shards=None) -> list:
+        """``fn(i, *per_shard[k])`` for each shard ``i`` of ``shards``
+        (default: all, ``per_shard`` one argument tuple a shard), each in
+        its shard's thread with its device current and on its stream; the
+        results in order. ``wait`` first makes each shard's stream wait for
+        the calling thread's current stream on that device (its inputs).
+        Work on a shard's tensors goes through here, so that it stays on the
+        shard's stream."""
+        shards = list(range(len(self.runs))) if shards is None else list(shards)
+        calls = []
+        for i, args in zip(shards, per_shard):
+            caller = (torch.cuda.current_stream(self.devices[i])
+                      if wait and self.streams[i] is not None else None)
+            calls.append((i, caller, fn, (i, *args)))
+        if self._pool is None or len(calls) == 1:
+            return [self._in_shard(*c) for c in calls]
+        futures = [self._pool.submit(self._in_shard, *c) for c in calls]
+        return [f.result() for f in futures]
+
+    def dispatch(self, blocks: Sequence, shards=None) -> list:
+        """One pixel block a shard (of ``shards``, default all) -> one
+        handle a shard."""
+        def segment(i, blk):
+            if isinstance(blk, torch.Tensor) and blk.is_cuda and self.streams[i] is not None:
+                blk.record_stream(self.streams[i])
+            return self.runs[i].segment_phase(blk)
+
+        segs = self.map(segment, [(b,) for b in blocks], wait=True, shards=shards)
+        widen(self.state, max(lmax for _, lmax in segs), self.max_labels)
+        cap, u8 = self.state["cap"], self.state["u8"]
+        return self.map(lambda i, seg: self.runs[i].features_phase(seg, cap, u8),
+                        [(seg,) for seg, _ in segs], shards=shards)
+
+    def collect_shards(self, handles: Sequence, shards=None) -> list[dict]:
+        """Each shard's results, as :func:`compile_fused_step`'s ``collect``."""
+        return self.map(lambda i, h: self.runs[i].collect(h), [(h,) for h in handles],
+                        shards=shards)
+
+    def collect(self, handles: Sequence, shards=None) -> dict:
+        """Every shard's results concatenated in shard order."""
+        return concat_outputs(self.collect_shards(handles, shards))
+
+    def __call__(self, blocks: Sequence) -> dict:
+        return self.collect(self.dispatch(blocks))
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+def concat_outputs(outs: Sequence[dict]) -> dict:
+    """Collected outputs of several calls, their rows concatenated in order
+    (the feature blocks share one tree width)."""
+    if len(outs) == 1:
+        return outs[0]
+    labels = [np.concatenate(parts) for parts in zip(*(o["labels"] for o in outs))]
+    features = []
+    for per_obj in zip(*(o["features"] for o in outs)):
+        features.append([(trees[0][0], np.concatenate([arr for _, arr in trees], axis=1))
+                         for trees in zip(*per_obj)])
+    return {"labels": list(labels), "features": features}
 
 
 def results_from_fused(plan, names: list[str], arr: np.ndarray, labels: np.ndarray):

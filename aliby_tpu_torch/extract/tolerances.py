@@ -88,6 +88,23 @@ Training (``models/training.py``), f32, held with :func:`gradient_excess`:
   of the model's largest |value|. CPU readings against JAX: loss 8.3e-6,
   gradients 1.4e-5 of the tensor's largest, rounding-only tensors 1.8e-7
   of the model's largest (``tests/test_torch_training.py``).
+- the parameters after a few steps whose gradients were summed in another
+  order (the sharded step against one process, or against the JAX
+  package's sharded step), held with :func:`update_excess`: per tensor,
+  the L2 norm of the difference of the updates ``p - p_0`` within
+  ``UPDATE_RTOL`` of the L2 norm of the reference's update. Adam divides
+  each element's gradient by its own magnitude, so an element whose
+  gradient is near Adam's eps (1e-8) turns a gradient error of 1e-5 of
+  the tensor's largest into an update error of a good share of lr (the
+  elementwise difference reaches 3,000 times 1e-4 of the largest update
+  at the flagship widths); the norm weighs such elements by their share.
+  A tensor whose gradient is rounding only (see above) takes Adam steps on
+  noise, in either direction: there |p - p_ref| <= 2 sum_s lr_s. CPU
+  readings (4 gloo ranks): widths (8, 16, 32), 2 steps, 1.3e-5 against
+  one process and 4.6e-5 against JAX (the port's one-process step reads
+  4.6e-5 against JAX too); the flagship widths, 8 x 128^2, one step,
+  5.1e-4, its first gradient within 0.047 of ``GRAD_RTOL``
+  (``tests/test_torch_sharded_training.py``, ``chip_smoke.py`` phase 10).
 """
 
 from __future__ import annotations
@@ -120,6 +137,7 @@ GRAD_CARD_RTOL = 1e-3
 GRAD_FLOOR = 1e-4
 GRAD_FLOOR_ATOL = 1e-6
 GRAD_CARD_FLOOR_ATOL = 1e-5
+UPDATE_RTOL = 1e-2
 _FIRST_MOMENTS = frozenset(f"AreaShape_{kind}Moment_{i}_{j}"
                            for kind in ("Central", "Normalized") for i, j in ((0, 1), (1, 0)))
 
@@ -232,4 +250,25 @@ def gradient_excess(got: dict, want: dict, rtol: float = GRAD_RTOL,
         limit = floor_atol * g_max if floor else rtol * scale
         err = float(np.abs(np.asarray(got[name], np.float64) - w).max(initial=0.0))
         out[name] = (err / limit if limit > 0 else (0.0 if err == 0 else float("inf")), floor)
+    return out
+
+
+def update_excess(got: dict, want: dict, initial: dict, lr_sum: float,
+                  rtol: float = UPDATE_RTOL, noise: frozenset = frozenset()
+                  ) -> dict[str, float]:
+    """Per parameter tensor after steps from ``initial``, the L2 norm of
+    ``got - want`` over ``rtol`` times the L2 norm of ``want - initial``;
+    for the tensors named in ``noise`` (gradients of rounding only) the
+    largest |got - want| over ``2 * lr_sum``. A ratio above 1 is beyond
+    the tolerance."""
+    if set(got) != set(want) or set(got) != set(initial):
+        raise ValueError("parameter names differ")
+    out = {}
+    for name in want:
+        g, w, p0 = (np.asarray(t[name], np.float64) for t in (got, want, initial))
+        if name in noise:
+            out[name] = float(np.abs(g - w).max(initial=0.0)) / (2 * lr_sum)
+            continue
+        err, scale = float(np.linalg.norm(g - w)), float(np.linalg.norm(w - p0))
+        out[name] = err / (rtol * scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
     return out

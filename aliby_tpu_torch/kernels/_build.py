@@ -8,6 +8,14 @@ process per source, started together). Nothing is compiled at import.
 
 Every C entry returns ``cudaGetLastError()`` after its launches; the
 Python wrappers raise through :func:`check` when it is not 0.
+
+The C entries launch on the CUDA runtime's current device of the calling
+thread, with the stream they are given. A wrapper therefore makes the
+tensor's device current around its launch (:func:`on_device`): a thread
+working on ``cuda:1`` whose current device is 0 would otherwise launch on
+device 0 with device-1 pointers. Wrappers count their launches through
+:func:`count`, which several threads may call at once; :func:`tally`
+counts one thread's launches apart (a shard of the mesh runner).
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import torch
@@ -111,3 +121,41 @@ def stream_of(t: torch.Tensor) -> int:
     (PyTorch's own raw-stream query: ``torch.cuda.current_stream`` builds a
     Stream object, several microseconds of host time a launch)."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s card the calling thread's current
+    device for a launch (nothing to do when it already is)."""
+    index = t.get_device()
+    return nullcontext() if torch.cuda.current_device() == index else torch.cuda.device(index)
+
+
+_COUNT_LOCK = threading.Lock()
+_TALLY = threading.local()
+
+
+def count(wrapper, n: int = 1) -> None:
+    """Add ``n`` launches to ``wrapper.launches`` (under a lock: a
+    read-modify-write from several threads would lose counts) and to the
+    calling thread's :func:`tally`, if one is open."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
+    tallied = getattr(_TALLY, "counts", None)
+    if tallied is not None:
+        tallied[wrapper.__name__] = tallied.get(wrapper.__name__, 0) + n
+
+
+@contextmanager
+def tally():
+    """Count the launches that this thread makes inside the block, by
+    wrapper name: ``with tally() as counts: ...``."""
+    outer = getattr(_TALLY, "counts", None)
+    counts: dict[str, int] = {}
+    _TALLY.counts = counts
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+        if outer is not None:
+            for name, n in counts.items():
+                outer[name] = outer.get(name, 0) + n

@@ -725,12 +725,15 @@ int sum_runs(const float* vals, const int32_t* bins, int shift, float* run_sums,
   s.run_bin = s.run_count + B * n_chunks;
   s.entries = s.run_bin + rows;
   s.listed = listed;
-  static bool smem_opted_in = false;  // one card: set once
-  cudaError_t e = cudaSuccess;
-  if (!smem_opted_in) {
+  // the attribute is the current device's: set once on each card (a
+  // device past the table's 64 sets it on every call)
+  static bool smem_opted_in[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev >= 64 || !smem_opted_in[dev])) {
     e = cudaFuncSetAttribute(chunk_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kSumSmemMax);
-    smem_opted_in = e == cudaSuccess;
+    if (e == cudaSuccess && dev < 64) smem_opted_in[dev] = true;
   }
   if (e == cudaSuccess) e = cudaMemsetAsync(ints, 0, (size_t)(2 + cells) * sizeof(int32_t), st);
   if (e == cudaSuccess) e = cudaMemsetAsync(out, 0, (size_t)cells * K * sizeof(float), st);

@@ -18,6 +18,17 @@ On the card a step runs with cuDNN deterministic and its autotuner off
 (``cpnet.tf32_off``), so that two runs from one seed give the same bits
 and f32 is f32 as on the CPU. Checkpoints are the JAX package's f16 Flax
 msgpack bytes (:func:`save_params`, :func:`load_params`).
+
+:func:`make_sharded_train_step` is the multi-device step over a ``(dp,
+sp)`` mesh of ``torch.distributed`` ranks
+(:meth:`~aliby_tpu_torch.parallel.mesh.Mesh.from_process_group`): the batch
+over dp, image rows over sp (the U-Net's halo exchanges,
+:mod:`aliby_tpu_torch.parallel.spatial`), the model and the optimizer
+replicated. Each rank's loss is its partial of the global loss, the ranks'
+gradients are summed by one all-reduce, and every rank takes the same
+AdamW step, so the parameters stay the same bits on every rank. The sums
+run in another order than in one process: the step is held to the f32
+rules of the one-process step, not to its bits.
 """
 
 from __future__ import annotations
@@ -49,11 +60,39 @@ from aliby_tpu_torch.test_data import render_budding_movie, render_cells
 deterministic_cudnn = HeldFlags(torch.backends.cudnn, deterministic=True, benchmark=False)
 
 
-def loss_fn(model: CellposeNet, batch: dict) -> tuple[torch.Tensor, dict]:
+METRICS = ("loss", "flow_loss", "prob_loss")
+# the training batch's partition specs over a (dp, sp) mesh, the JAX
+# package's make_sharded_train_step's
+BATCH_SPEC = {"image": ("dp", "sp", None, None), "flows": ("dp", None, "sp", None),
+              "fg": ("dp", "sp", None)}
+
+
+def loss_fn(model: CellposeNet, batch: dict, reduce: Callable | None = None,
+            sp=None) -> tuple[torch.Tensor, dict]:
     """Loss of one batch (``training.py`` ``loss_fn``): ``image`` (B, H, W,
     C) f32, ``flows`` (B, 2, H, W) f32 targets, ``fg`` (B, H, W) bool. Returns
-    the loss and a dict of tensors (no host synchronisation)."""
-    pred = model(batch["image"])  # (B, H, W, 3)
+    the loss and a dict of tensors (no host synchronisation).
+
+    With ``reduce`` (a function that sums a tensor over the ranks) ``batch``
+    is one rank's block of a global batch, the U-Net runs with ``sp`` (this
+    rank's :class:`~aliby_tpu_torch.parallel.spatial.SpatialShard`, or None
+    when rows are not split), and the loss and metrics are this rank's
+    partials (:func:`loss_from_pred`): their sum over the ranks is the
+    global batch's."""
+    pred = model(batch["image"]) if sp is None else model(batch["image"], sp=sp)
+    return loss_from_pred(pred, batch, reduce)
+
+
+def loss_from_pred(pred: torch.Tensor, batch: dict,
+                   reduce: Callable | None = None) -> tuple[torch.Tensor, dict]:
+    """The loss of predictions ``pred`` (B, H, W, 3) against ``batch``'s
+    targets. With ``reduce`` it is this block's partial of the global loss:
+    the weights ``w`` are normalised by their global mean (``reduce`` sums
+    this block's sum of ``w`` and its pixel count over the ranks; ``w`` is
+    data, so no gradient flows through it) and every sum is divided by the
+    global element count."""
+    if reduce is not None:
+        return _partial_loss(pred, batch, reduce)
     flow_pred = pred[..., :2]
     logit = pred[..., 2]
     flow_target = 5.0 * torch.movedim(batch["flows"], 1, -1)
@@ -123,9 +162,97 @@ def make_train_step(model: CellposeNet, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded (dp, sp) train step runs on several GPUs: ROADMAP queue 1 item 7")
+def _partial_loss(pred: torch.Tensor, batch: dict, reduce: Callable):
+    flow_target = 5.0 * torch.movedim(batch["flows"], 1, -1)
+    fg = batch["fg"].to(torch.float32)
+    w = 0.2 + 0.8 * fg[..., None]
+    with torch.no_grad():
+        stats = reduce(torch.stack([w.sum(dtype=torch.float64),
+                                    torch.full((), float(w.numel()), dtype=torch.float64,
+                                               device=w.device)]))
+        mean_w = (stats[0] / stats[1]).to(torch.float32)
+        n = stats[1].to(torch.float32)  # the global batch's pixels
+    flow_loss = torch.sum((w / mean_w) * (pred[..., :2] - flow_target) ** 2) / (2.0 * n)
+    logit = pred[..., 2]
+    bce = -fg * F.logsigmoid(logit) - (1.0 - fg) * F.logsigmoid(-logit)
+    prob_loss = torch.sum(bce) / n
+    loss = 0.5 * flow_loss + prob_loss
+    return loss, {"loss": loss.detach(), "flow_loss": flow_loss.detach(),
+                  "prob_loss": prob_loss.detach()}
+
+
+def make_sharded_train_step(model: CellposeNet, optimizer: torch.optim.Optimizer,
+                            scheduler=None, mesh=None):
+    """The train step of one rank of a ``(dp, sp)`` mesh
+    (:meth:`~aliby_tpu_torch.parallel.mesh.Mesh.from_process_group`):
+    ``(step, BATCH_SPEC)``, as the JAX package returns the step and the
+    batch's shardings. ``step(batch) -> metrics`` takes the global batch,
+    which every rank holds (each renders it from the same seed), and works
+    on this rank's block (:data:`BATCH_SPEC`: the batch over dp, rows over
+    sp in blocks of :func:`~aliby_tpu_torch.parallel.mesh.sp_rows`).
+
+    Each rank holds the replicated model and optimizer. Its loss is its
+    partial of the global loss (:func:`loss_from_pred`); after the backward
+    (in which the halo exchanges and GroupNorm's and the style's
+    all-reduces route gradients between the sp ranks) one all-reduce sums
+    the flattened gradients over all ``dp * sp`` ranks, the metrics'
+    partials riding along: a sum, not DDP's mean. Every rank then takes the
+    same AdamW step on the same bits. The metrics are the global batch's,
+    device tensors; nothing waits on the host but what the backend itself
+    waits on (gloo stages CUDA tensors through the host).
+    ``step.gradients(batch)`` leaves the global gradient in the
+    parameters' ``.grad`` without stepping."""
+    import torch.distributed as dist
+
+    from aliby_tpu_torch.parallel.mesh import shard_batch, sp_rows
+    from aliby_tpu_torch.parallel.spatial import SpatialShard
+
+    if mesh is None or mesh.rank is None:
+        raise ValueError("make_sharded_train_step needs this process's mesh "
+                         "(Mesh.from_process_group)")
+    _, s = mesh.coords()
+    sp = mesh.shape["sp"]
+    unit = 2 ** (len(model.feats) - 1)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def reduce(t: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(t)
+        return t
+
+    def gradients(batch: dict) -> dict:
+        """The global batch's gradient in every parameter's ``.grad`` (the
+        same bits on every rank) and the global metrics; no optimizer step."""
+        block = shard_batch(mesh, batch, spec=BATCH_SPEC, unit=unit)
+        shard = (SpatialShard(mesh.sp_group, s, sp_rows(batch["image"].shape[1], sp, unit))
+                 if sp > 1 else None)
+        with ExitStack() as stack:
+            if block["image"].is_cuda:
+                stack.enter_context(deterministic_cudnn())
+                if model.dtype == torch.float32:
+                    stack.enter_context(tf32_off())
+            loss, metrics = loss_fn(model, block, reduce=reduce, sp=shard)
+            loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [torch.stack([metrics[k] for k in METRICS])])
+        dist.all_reduce(flat)
+        offset = 0
+        for p in params:
+            n = p.numel()
+            p.grad = flat[offset:offset + n].view_as(p)
+            offset += n
+        return dict(zip(METRICS, flat[offset:offset + len(METRICS)].unbind(0)))
+
+    def step(batch: dict) -> dict:
+        metrics = gradients(batch)
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        optimizer.zero_grad(set_to_none=True)
+        return metrics
+
+    step.gradients = gradients
+    return step, BATCH_SPEC
 
 
 def _render(rng: np.random.Generator, size: int, budding_frac: float, nuclei_frac: float):

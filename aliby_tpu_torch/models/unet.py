@@ -12,6 +12,12 @@ in ``dtype``; the head is f32. GroupNorm uses Flax's statistics
 The public ``forward`` takes and returns NHWC like the Flax model; inside
 it runs NCHW. Parameters are f32; :func:`aliby_tpu_torch.models.weights.
 params_from_flax` names them.
+
+``forward(x, sp=shard)`` runs this rank's block of image rows of a
+spatially partitioned forward (:mod:`aliby_tpu_torch.parallel.spatial`):
+the 3x3 convolutions take halo rows from the neighbouring ranks, GroupNorm
+and the style vector all-reduce their sums. Without ``sp`` nothing of that
+runs, and the forward is the one-device forward, bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aliby_tpu_torch.device import resolve_device
+from aliby_tpu_torch.parallel import spatial
 
 
 class GroupNorm(nn.Module):
@@ -35,12 +42,18 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp: spatial.SpatialShard | None = None) -> torch.Tensor:
         x = x.to(torch.float32)
         B, C, H, W = x.shape
         g = x.reshape(B, self.num_groups, -1)
-        mu = g.mean(dim=-1)
-        mu2 = (g * g).mean(dim=-1)
+        if sp is None:
+            mu = g.mean(dim=-1)
+            mu2 = (g * g).mean(dim=-1)
+        else:  # the group's sums over every rank's rows
+            sums = spatial.all_reduce(torch.stack([g.sum(dim=-1), (g * g).sum(dim=-1)]),
+                                      sp.group)
+            n = sp.global_count(g.shape[-1])
+            mu, mu2 = sums[0] / n, sums[1] / n
         var = torch.clamp_min(mu2 - mu * mu, 0.0)
         per_c = C // self.num_groups
         mean = mu.repeat_interleave(per_c, dim=1).reshape(B, C, 1, 1)
@@ -59,9 +72,13 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp: spatial.SpatialShard | None = None) -> torch.Tensor:
         k = self.weight.shape[-1]
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype), padding=k // 2)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if sp is None or k == 1:
+            y = F.conv2d(x, w, padding=k // 2)
+        else:  # the neighbours' rows stand in for the row padding
+            y = F.conv2d(spatial.halo_rows(x, sp, k // 2), w, padding=(0, k // 2))
         return y + self.bias.to(self.dtype).reshape(1, -1, 1, 1)
 
 
@@ -74,9 +91,9 @@ class ConvBlock(nn.Module):
         self.conv1 = Conv(features, features, 3, dtype)
         self.proj = Conv(cin, features, 1, dtype) if cin != features else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv0(F.silu(self.norm0(x)))
-        h = self.conv1(F.silu(self.norm1(h)))
+    def forward(self, x: torch.Tensor, sp: spatial.SpatialShard | None = None) -> torch.Tensor:
+        h = self.conv0(F.silu(self.norm0(x, sp)), sp)
+        h = self.conv1(F.silu(self.norm1(h, sp)), sp)
         if self.proj is not None:
             x = self.proj(x)
         return x + h
@@ -108,19 +125,31 @@ class CellposeNet(nn.Module):
                                           ConvBlock(feats[i], feats[i], dtype)]))
         self.head = Conv(feats[0], out_channels, 1, torch.float32)
 
-    def forward(self, x: torch.Tensor, style_only: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, style_only: bool = False,
+                sp: spatial.SpatialShard | None = None) -> torch.Tensor:
         """(B, H, W, C_in) f32 -> (B, H, W, 3) f32, or the (B, bottleneck)
-        style vector with ``style_only=True``."""
+        style vector with ``style_only=True``. With ``sp``, ``x`` is this
+        rank's block of ``sp.own`` rows and so is the output (the style is
+        the whole image's)."""
+        if sp is not None:
+            if x.shape[1] != sp.own:
+                raise ValueError(f"rank {sp.rank}'s block has {x.shape[1]} rows, its shard "
+                                 f"{sp.own}")
+            sp.check_unit(2 ** (len(self.feats) - 1))
         h = x.permute(0, 3, 1, 2).to(self.dtype)
-        h = self.stem(h)
+        h = self.stem(h, sp)
         skips = []
         for i, (a, b) in enumerate(self.down):
-            h = b(a(h))
+            h = b(a(h, sp), sp)
             skips.append(h)
             if i < len(self.feats) - 1:
                 h = F.avg_pool2d(h, 2, 2)
 
-        style = h.to(torch.float32).mean(dim=(2, 3))
+        if sp is None:
+            style = h.to(torch.float32).mean(dim=(2, 3))
+        else:
+            style = spatial.all_reduce(h.to(torch.float32).sum(dim=(2, 3)), sp.group)
+            style = style / sp.global_count(h.shape[2] * h.shape[3])
         norm = torch.linalg.vector_norm(style, dim=-1, keepdim=True)
         style = style / torch.clamp_min(norm, 1e-6)
         if style_only:
@@ -128,13 +157,13 @@ class CellposeNet(nn.Module):
 
         for i in reversed(range(len(self.feats) - 1)):
             h = F.interpolate(h, scale_factor=2, mode="nearest")
-            h = self.up_reduce[i](h)
+            h = self.up_reduce[i](h, sp)
             dense = self.style[i]
             s = F.linear(style.to(self.dtype), dense.weight.to(self.dtype)) \
                 + dense.bias.to(self.dtype)
             h = h + skips[i] + s[:, :, None, None].to(self.dtype)
             a, b = self.up[i]
-            h = b(a(h))
+            h = b(a(h, sp), sp)
 
         out = self.head(h.to(torch.float32))
         return out.permute(0, 2, 3, 1).to(torch.float32)

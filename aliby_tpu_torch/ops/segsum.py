@@ -9,7 +9,8 @@ which no production path calls, as in the reference.
 Each wrapper runs its plain PyTorch version (``*_plain``) for CPU tensors
 and launches its CUDA kernel (``kernels/csrc/segsum.cu``) for CUDA tensors;
 there is no fallback between the two. ``<wrapper>.launches`` counts kernel
-launches.
+launches. A launch runs on its tensors' card, whatever the calling thread's
+current device.
 
 The two sum kernels take every sum in one fixed order: a left fold from
 +0.0 over the bin's pixels of each ``CHUNK``-pixel chunk, in pixel order,
@@ -148,10 +149,11 @@ def _launch_sums(entry: str, what: str, vals, flat, B: int, N: int, K: int, n_bi
     base = scratch.data_ptr()
     args = (vals.data_ptr(), flat.data_ptr(), base + 8 * n_l, base + 8 * n_l + 4 * n_f, base,
             out.data_ptr())
-    if entry == "segment_sum":
-        err = lib.segment_sum(*args, N, K, n_bins, _build.stream_of(vals))
-    else:
-        err = lib.binned_sum_cols(*args, B, N, K, n_bins, _build.stream_of(vals))
+    with _build.on_device(vals):
+        if entry == "segment_sum":
+            err = lib.segment_sum(*args, N, K, n_bins, _build.stream_of(vals))
+        else:
+            err = lib.binned_sum_cols(*args, B, N, K, n_bins, _build.stream_of(vals))
     _build.check(err, what)
     return out
 
@@ -170,7 +172,7 @@ def binned_sum_cols_batched(values: torch.Tensor, bins: torch.Tensor,
         return torch.zeros(B, n_bins, K, dtype=torch.float32, device=vals.device)
     out = _launch_sums("binned_sum_cols", "binned_sum_cols_batched", vals.contiguous(),
                        _int32_bins(flat, n_bins), B, N, K, n_bins)
-    binned_sum_cols_batched.launches += 1
+    _build.count(binned_sum_cols_batched)
     return out
 
 
@@ -236,7 +238,7 @@ def segment_sum_matmul(values: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"max_labels must be positive, got {max_labels}")
     out = _launch_sums("segment_sum", "segment_sum_matmul", vals.contiguous(),
                        _int32_bins(flat_l, max_labels + 1), 1, N, K, max_labels)
-    segment_sum_matmul.launches += 1
+    _build.count(segment_sum_matmul)
     return out[0]
 
 
@@ -330,12 +332,13 @@ def binned_minmax_batched(values: torch.Tensor, bins: torch.Tensor, n_bins: int)
     mn = out.data_ptr()
     stream = _build.stream_of(vals)
     tickets = minmax_tickets(B, vals.device, stream)
-    _build.check(
-        lib.binned_minmax(vals.data_ptr(), flat.data_ptr(), mn, mn + 4 * B * slots,
-                          part.data_ptr(), tickets.data_ptr(), B, N, K, n_bins, G, stream),
-        "binned_minmax_batched",
-    )
-    binned_minmax_batched.launches += 1
+    with _build.on_device(vals):
+        _build.check(
+            lib.binned_minmax(vals.data_ptr(), flat.data_ptr(), mn, mn + 4 * B * slots,
+                              part.data_ptr(), tickets.data_ptr(), B, N, K, n_bins, G, stream),
+            "binned_minmax_batched",
+        )
+    _build.count(binned_minmax_batched)
     return out.unbind(0)
 
 
@@ -388,12 +391,13 @@ def table_lookup_batched(table: torch.Tensor, bins: torch.Tensor) -> torch.Tenso
     out = tab.new_empty(bins.shape + (K,))
     if N:
         lib = _build.load("segsum")
-        _build.check(
-            lib.table_lookup(tab.data_ptr(), flat.data_ptr(), out.data_ptr(), B, N, L, K,
-                             LOOKUP_CHUNK, _build.stream_of(tab)),
-            "table_lookup_batched",
-        )
-        table_lookup_batched.launches += 1
+        with _build.on_device(tab):
+            _build.check(
+                lib.table_lookup(tab.data_ptr(), flat.data_ptr(), out.data_ptr(), B, N, L, K,
+                                 LOOKUP_CHUNK, _build.stream_of(tab)),
+                "table_lookup_batched",
+            )
+        _build.count(table_lookup_batched)
     return out
 
 

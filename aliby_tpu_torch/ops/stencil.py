@@ -12,7 +12,8 @@
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 the CUDA kernel (``kernels/csrc/stencil.cu``) for CUDA tensors; there is no
 fallback between the two. On the card neither wrapper synchronises with
-the host. ``<wrapper>.launches`` counts kernel launches.
+the host. ``<wrapper>.launches`` counts kernel launches. A launch runs on
+its tensors' card, whatever the calling thread's current device.
 """
 
 from __future__ import annotations
@@ -111,13 +112,14 @@ def successor_prop(dcode: torch.Tensor, key0: torch.Tensor, n_prop: int = 96,
     n = n_prop.bit_length()
     # two powers of the successor map and their composition so far
     maps = torch.empty(3 * key0.numel(), dtype=torch.int32, device=key0.device) if n > 1 else None
-    _build.check(
-        lib.successor_prop(dcode.data_ptr(), key0.data_ptr(), out.data_ptr(),
-                           maps.data_ptr() if n > 1 else None, B, H, W, n_prop,
-                           _build.stream_of(key0)),
-        "successor_prop",
-    )
-    successor_prop.launches += n
+    with _build.on_device(key0):
+        _build.check(
+            lib.successor_prop(dcode.data_ptr(), key0.data_ptr(), out.data_ptr(),
+                               maps.data_ptr() if n > 1 else None, B, H, W, n_prop,
+                               _build.stream_of(key0)),
+            "successor_prop",
+        )
+    _build.count(successor_prop, n)
     return out
 
 
@@ -170,12 +172,14 @@ def diffuse_heat(labels: torch.Tensor, source: torch.Tensor, n_iter: int = 96) -
     out = torch.empty(labels.shape, dtype=torch.float32, device=labels.device)
     tmp = torch.empty_like(out)
     flags = torch.empty(labels.shape, dtype=torch.int16, device=labels.device)
-    _build.check(
-        lib.diffuse_heat(labels.data_ptr(), source.data_ptr(), out.data_ptr(), tmp.data_ptr(),
-                         flags.data_ptr(), B, H, W, n_iter, _build.stream_of(labels)),
-        "diffuse_heat",
-    )
-    diffuse_heat.launches += diffuse_launches(n_iter)
+    with _build.on_device(labels):
+        _build.check(
+            lib.diffuse_heat(labels.data_ptr(), source.data_ptr(), out.data_ptr(),
+                             tmp.data_ptr(), flags.data_ptr(), B, H, W, n_iter,
+                             _build.stream_of(labels)),
+            "diffuse_heat",
+        )
+    _build.count(diffuse_heat, diffuse_launches(n_iter))
     return out
 
 

@@ -201,7 +201,34 @@ Phases, in order; any failure exits non-zero:
    of each path, peak memory, the device idle share of one mesh call, and
    kernels 1-5 timed at the mesh call's (8, 1080, 1080) shapes, rows
    "... (TIFF plate)" of the ``kernels`` line.
-   Each phase prints its seconds.
+10. several devices (slice 9): (a) example 04's path
+   (``examples/04_mesh_parallel_plate.py``: ``crop_cellpainting_256``
+   through its pipeline, via ``run_positions_mesh_states``) and a tracked
+   plate (3 positions x 4 tps of 512^2 in a zlib zarr store, a stitch
+   tracker per object, chunks of 2, shards of 2 + 1 positions, the last
+   position alone past the fused step's initial width of 64) on
+   ``make_mesh(devices=["cuda:0"] * 2)`` (two shards on one card, each in
+   its own thread and stream) and, with several cards, on ``make_mesh()``:
+   profiles, labels, tracks and saves bit-equal to dp = 1, both shards
+   widened at once, each shard's launches of kernels 1-5 printed and equal
+   to a dp = 1 run's (one call a chunk each); kernels 1-5 at the tracked
+   plate's two shard shapes (recorded per shard stream in its dp = 2 run)
+   launched from two threads at once, each on a stream of its own, and held
+   to plain, then timed as rows "... (dp shards)" of the ``kernels`` line
+   with that run's launches; (b) the sharded train step at
+   the flagship widths (32, 64, 128, 256), 8 x 128^2 f32 with TF32 off, in
+   4 gloo ranks on cuda:0 (dp 2 x sp 2, ``parallel.dryrun.spawn_ranks``),
+   3 steps against the one-process ``make_train_step`` on the same card:
+   losses within ``LOSS_RTOL``, the first batch's global gradient by
+   ``gradient_excess`` (``GRAD_RTOL``), the parameters' updates by ``extract.tolerances.
+   update_excess`` (L2, ``UPDATE_RTOL``), the same bits on every rank,
+   ``diffuse_heat`` launched in every rank; (c) the sp forward of the
+   bundled flagship on 2 fields of 1080^2 in the same ranks (an sp pair a
+   field, 544 + 536 rows) in f32 (rtol and atol 1e-4) and bf16 (the flow
+   rule of ``extract.tolerances``) against the one-process forward. Prints
+   each part's seconds, ms a step and a forward beside one process's.
+   Each phase prints its seconds. ``python3 chip_smoke.py --phase 10``
+   builds the kernels and runs phase 10 alone (no result line).
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
 result. Weights are the bundled checkpoint; inputs come from fixed seeds.
@@ -266,6 +293,11 @@ REPLACES = {
     "binned_sum_cols_batched (TIFF plate)": "aliby_tpu/ops/pallas_segsum.py:234",
     "binned_minmax_batched (TIFF plate)": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched (TIFF plate)": "aliby_tpu/ops/pallas_segsum.py:302",
+    "successor_prop (dp shards)": "aliby_tpu/ops/pallas_stencil.py:115",
+    "diffuse_heat (dp shards)": "aliby_tpu/ops/pallas_stencil.py:182",
+    "binned_sum_cols_batched (dp shards)": "aliby_tpu/ops/pallas_segsum.py:234",
+    "binned_minmax_batched (dp shards)": "aliby_tpu/ops/pallas_segsum.py:251",
+    "table_lookup_batched (dp shards)": "aliby_tpu/ops/pallas_segsum.py:302",
 }
 SEGMENT_SUM_SHAPE = (16 * 65536, 16, 256)  # N, K, max_labels
 DEFAULT_BANK = dict(channels_to_segment={"nuclei": 0, "cell": 3},
@@ -1552,19 +1584,19 @@ def main_wrappers() -> dict:
             "table_lookup_batched": segsum.table_lookup_batched}
 
 
-def mesh_call_recorders() -> dict:
-    """Recorders of the first call of kernels 1-5 in a fused mesh call: the
-    stencils, the flow-error QC's sums (3 columns, 257 bins), the first
-    min/max and lookup."""
+def mesh_call_recorders(kind=Recorder) -> dict:
+    """Recorders (of class ``kind``) of the first call of kernels 1-5 in a
+    fused mesh call: the stencils, the flow-error QC's sums (3 columns, 257
+    bins), the first min/max and lookup."""
     from aliby_tpu_torch.extract import reductions
     from aliby_tpu_torch.models import flows
 
-    return {"successor_prop": Recorder(flows, "successor_prop"),
-            "diffuse_heat": Recorder(flows, "diffuse_heat"),
-            "binned_sum_cols_batched": Recorder(reductions, "binned_sum_cols_batched",
-                                                lambda v, b, n: n == 257 and v.shape[-1] == 3),
-            "binned_minmax_batched": Recorder(reductions, "binned_minmax_batched"),
-            "table_lookup_batched": Recorder(reductions, "table_lookup_batched")}
+    return {"successor_prop": kind(flows, "successor_prop"),
+            "diffuse_heat": kind(flows, "diffuse_heat"),
+            "binned_sum_cols_batched": kind(reductions, "binned_sum_cols_batched",
+                                            lambda v, b, n: n == 257 and v.shape[-1] == 3),
+            "binned_minmax_batched": kind(reductions, "binned_minmax_batched"),
+            "table_lookup_batched": kind(reductions, "table_lookup_batched")}
 
 
 def runner_pipeline(ntps: int) -> dict:
@@ -3211,6 +3243,418 @@ def tiff_plate_phase(dev, size=PLATE_SIZE) -> tuple[dict, dict]:
     return stats, rows
 
 
+# ------------------------------------------------------------------ phase 10
+DP_SHARDS = " (dp shards)"
+MULTI_PLATE = (3, 4, 512, 2)  # the tracked plate: positions, tps, size, chunk
+MULTI_PLATE_CELLS = (20, 24, None)  # cells a position; None: the bench's density (96 at 512^2)
+FLAGSHIP = (32, 64, 128, 256)
+MULTI_TRAIN = {"feats": FLAGSHIP, "size": 128, "batch": 8, "steps": 3, "lr": 1e-3}
+MULTI_FORWARD = {"feats": FLAGSHIP, "size": 1080, "batch": 2, "seed": 11, "weights": "bundled",
+                 "reps": 2}
+
+
+def example04_pipeline(ntps: int | None = None) -> dict:
+    """``examples/04_mesh_parallel_plate.py``'s pipeline (nuclei on DNA, cell
+    on AGP, intensity without edges and sizeshape); with ``ntps`` also a
+    stitch tracker per object, compiled, segments and tracks saved."""
+    from aliby_tpu_torch.engine.builders import build_pipeline_steps
+    from aliby_tpu_torch.test_data import get_dataset
+
+    ch = get_dataset("crop_cellpainting_256")["channels"]
+    pipeline = build_pipeline_steps(
+        channels_to_segment={"nuclei": ch["DNA"], "cell": ch["AGP"]},
+        channels_to_extract=[ch["DNA"], ch["AGP"]], features_to_extract=("intensity", "sizeshape"),
+        cp_measure_feature_kwargs={"intensity": {"edge_measurements": False}})
+    if ntps is not None:
+        for obj in ("nuclei", "cell"):
+            pipeline["steps"][f"track_{obj}"] = {"kind": "stitch", "max_labels": 256,
+                                                 "iou_threshold": 0.25}
+            pipeline["passed_data"][f"track_{obj}"] = [("masks", f"segment_{obj}")]
+        pipeline["save"] = [f"{k}_{o}" for k in ("segment", "track") for o in ("nuclei", "cell")]
+        pipeline.update(ntps=ntps, compiled=True)
+    return pipeline
+
+
+def mesh_plate_runs(what: str, base: dict, positions: list, tmp: str, meshes: dict, dev,
+                    recorders: dict | None = None, **kw) -> dict:
+    """``run_positions_mesh_states`` of ``base`` on each of ``meshes`` (tag
+    -> mesh, or None: ``device=dev``, dp = 1), every launch counter set to
+    0 before each (each run starts at the fused step's initial width);
+    ``recorders`` (tag -> recorders) record during that tag's run. Returns
+    {tag: (entries, launches of the run, launches of each shard, seconds,
+    state after)}."""
+    from aliby_tpu_torch.parallel.pipeline_mesh import run_positions_mesh_states
+
+    wrappers = main_wrappers()
+    out = {}
+    for tag, mesh in meshes.items():
+        report = {}
+        for w in wrappers.values():
+            w.launches = 0
+        sync()
+        with recording((recorders or {}).get(tag, [])):
+            t0 = time.perf_counter()
+            entries, _ = run_positions_mesh_states(
+                base, positions, os.path.join(tmp, tag), mesh=mesh,
+                device=None if mesh is not None else dev, overwrite=True, report=report, **kw)
+            sync()
+            seconds = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        shards = [{k: n.get(k, 0) for k in wrappers} for n in report["shard_launches"]]
+        out[tag] = (entries, launches, shards, seconds, report["state"])
+        log(f"[multi] {what}, {tag}: {len(positions)} positions in {seconds:.2f} s; "
+            f"launches {launches}; per shard {shards}; state after {report['state']}")
+    return out
+
+
+class ShardRecorder(Recorder):
+    """A Recorder that keeps the first accepted call's arguments of each
+    CUDA stream it is called on (a dp shard's thread runs on its own)."""
+
+    def __init__(self, module, name, want=None):
+        super().__init__(module, name, want)
+        self.by_stream = {}
+
+    def __call__(self, *args, **kwargs):
+        stream = torch.cuda.current_stream().cuda_stream
+        if stream not in self.by_stream and self.want(*args):
+            self.by_stream[stream] = args
+        return self.fn(*args, **kwargs)
+
+
+def shard_kernel_calls(args: dict) -> dict:
+    """name -> (kernel call, plain call) of kernels 1-5 on one shard's
+    recorded arguments, at the main path's round counts."""
+    from aliby_tpu_torch.ops import segsum, stencil
+
+    n = STENCIL_ROUNDS
+    d, k = args["successor_prop"][:2]
+    lab, src = args["diffuse_heat"][:2]
+    vals, bins, n_bins = args["binned_sum_cols_batched"]
+    mvals, mbins, m_bins = args["binned_minmax_batched"]
+    table, tbins = args["table_lookup_batched"]
+    return {
+        "successor_prop": (lambda: stencil.successor_prop(d, k, n),
+                           lambda: stencil.successor_prop_plain(d, k, n)),
+        "diffuse_heat": (lambda: stencil.diffuse_heat(lab, src, n),
+                         lambda: stencil.diffuse_heat_plain(lab, src, n)),
+        "binned_sum_cols_batched": (lambda: segsum.binned_sum_cols_batched(vals, bins, n_bins),
+                                    lambda: segsum.binned_sum_cols_batched_plain(vals, bins,
+                                                                                 n_bins)),
+        "binned_minmax_batched": (lambda: segsum.binned_minmax_batched(mvals, mbins, m_bins),
+                                  lambda: segsum.binned_minmax_batched_plain(mvals, mbins,
+                                                                             m_bins)),
+        "table_lookup_batched": (lambda: segsum.table_lookup_batched(table, tbins),
+                                 lambda: segsum.table_lookup_batched_plain(table, tbins)),
+    }
+
+
+def concurrent_shard_checks(per_shard: list, dev, reps: int = 3) -> dict:
+    """Kernels 1-5 launched from one host thread a shard, each on a stream
+    of its own on ``dev``, at once, on that shard's recorded arguments,
+    ``reps`` times each; every result held to its plain version (the sums
+    within ``check_sums``' bound, the rest bit-equal). Returns name -> the
+    largest |kernel - plain| over shards and repetitions."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    calls = [shard_kernel_calls(a) for a in per_shard]
+    streams = [torch.cuda.Stream(dev) for _ in per_shard]
+    sync()
+    errs = {}
+    for name in calls[0]:
+        def launch(i):
+            with torch.cuda.device(dev), torch.cuda.stream(streams[i]):
+                return [calls[i][name][0]() for _ in range(reps)]
+
+        with ThreadPoolExecutor(len(calls)) as pool:
+            got = list(pool.map(launch, range(len(calls))))
+        sync()
+        errs[name] = 0.0
+        for i, outs in enumerate(got):
+            want = calls[i][name][1]()
+            for out in outs:
+                if name == "binned_sum_cols_batched":
+                    check_sums(out, want, *per_shard[i][name], f"{name} shard {i} (dp shards)")
+                elif not agree(out, want):
+                    raise AssertionError(f"{name} from shard {i}'s thread and stream != plain "
+                                         "(dp shards)")
+                errs[name] = max(errs[name], max_abs_err(out, want))
+    return errs
+
+
+def same_plate(runs: dict, ref: str, base: dict, what: str) -> None:
+    """Every run's states bit-equal to ``ref``'s: profile columns (NaN
+    equal), every segment step's labels, tracker states."""
+    from aliby_tpu_torch.engine.core import profile_columns
+
+    want_entries = runs[ref][0]
+    segs = [n for n in base["steps"] if n.startswith("segment")]
+    tracks = [n for n in base["steps"] if n.startswith("track")]
+    for tag, (entries, *_) in runs.items():
+        for e, w in zip(entries, want_entries):
+            if not same_columns(profile_columns(e["state"], e["pipeline"]),
+                                profile_columns(w["state"], w["pipeline"])):
+                raise AssertionError(f"{what} {tag}: {e['pos']['key']}'s profile differs from "
+                                     f"{ref}'s")
+            for seg in segs:
+                a, b = e["state"]["data"][seg], w["state"]["data"][seg]
+                if len(a) != len(b) or not all(np.array_equal(x, y) for ta, tb in zip(a, b)
+                                               for x, y in zip(ta, tb)):
+                    raise AssertionError(f"{what} {tag}: {e['pos']['key']}'s {seg} differs")
+            for tr in tracks:
+                if not same_tracker_states(e["state"], w["state"], tr):
+                    raise AssertionError(f"{what} {tag}: {e['pos']['key']}'s {tr} differs")
+
+
+def shard_launches(runs: dict, ref: str, meshes: dict, n_pos: int, what: str) -> None:
+    """Each run's shards: the five kernels launched in every shard that held
+    positions (``min(dp, positions)`` of them; the others launched nothing),
+    each such shard's launches those of the dp = 1 run ``ref`` (a call
+    launches what it launches whatever its batch, and each shard makes one
+    call a chunk, as dp = 1 does), and the shards' sum the run's counters."""
+    want = runs[ref][1]
+    for tag, (_, launches, shards, *_) in runs.items():
+        dp = 1 if meshes[tag] is None else len(meshes[tag].dp_devices)
+        active = [sh for sh in shards if any(sh.values())]
+        if len(active) != min(dp, n_pos) or any(sh != want for sh in active):
+            raise AssertionError(f"{what} {tag}: shard launches {shards}, a dp = 1 run {want}")
+        summed = {k: sum(sh[k] for sh in shards) for k in launches}
+        missing = [k for k, n in launches.items() if n <= 0]
+        if summed != launches or missing:
+            raise AssertionError(f"{what} {tag}: shard launches {shards}, the run's {launches}")
+
+
+def multi_device_phase(dev) -> dict:
+    """Phase 10: several devices. (a) Example 04's path and a tracked plate
+    through ``run_positions_mesh_states`` on ``make_mesh(devices=["cuda:0"]
+    * 2)`` (two shards on one card, each on its own stream) and, with more
+    than one card, on ``make_mesh()``, bit-equal to dp = 1; (b) the sharded
+    train step at the flagship widths in 4 gloo ranks on cuda:0 (dp = 2,
+    sp = 2) against the one-process step; (c) the sp forward of the bundled
+    flagship at 1080^2 (544 + 536 rows) in f32 and bf16 against the
+    one-process forward. Returns (the phase's numbers, the "(dp shards)"
+    kernel rows)."""
+    import tempfile
+
+    from aliby_tpu_torch.io import zarrlite
+    from aliby_tpu_torch.io.dataset import DatasetDir, DatasetZarr
+    from aliby_tpu_torch.parallel.mesh import make_mesh
+    from aliby_tpu_torch.test_data import cellpainting_movie, get_dataset, get_dataset_path
+
+    stats = {"card": card()}
+    tmp = tempfile.TemporaryDirectory(prefix="aliby_multi_")
+    first = "cuda:0" if dev.type == "cuda" else "cpu"
+    meshes = {"dp1": None, "dp2 one card": make_mesh(devices=[first] * 2)}
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        meshes["every card"] = make_mesh()
+
+    # (a) example 04: the TIFF crops through the mesh
+    t_a = time.perf_counter()
+    entry = get_dataset("crop_cellpainting_256")
+    positions = DatasetDir(get_dataset_path(entry["name"]), regex=entry["regex"],
+                           capture_order=entry["capture_order"]).get_position_ids()
+    base = example04_pipeline()
+    runs = mesh_plate_runs("example 04", base, positions, tmp.name, meshes, dev,
+                           regex=entry["regex"], capture_order=entry["capture_order"])
+    same_plate(runs, "dp1", base, "example 04")
+    shard_launches(runs, "dp1", meshes, len(positions), "example 04")
+    stats["example04"] = {tag: {"s": r[3], "fields_per_s": len(positions) / r[3],
+                                "launches": r[1], "shards": r[2]} for tag, r in runs.items()}
+    # a tracked plate: uneven shards (2 + 1 positions), chunks of 2 tps, one
+    # position alone past the fused step's initial width of 64 labels
+    n_pos, ntps, size, chunk = MULTI_PLATE
+    store = os.path.join(tmp.name, "plate.zarr")
+    for p, n_cells in enumerate(MULTI_PLATE_CELLS):
+        movie = cellpainting_movie(1, ntps, size, seed=40 + p, n_cells=n_cells)
+        zarrlite.write_array(os.path.join(store, f"pos{p}"), movie[0],
+                             chunks=(1, 1, 1, size, size), compressor="zlib")
+    plate = DatasetZarr(store).get_position_ids()
+    tracked = example04_pipeline(ntps)
+    recs = mesh_call_recorders(ShardRecorder)
+    runs = mesh_plate_runs("tracked plate", tracked, plate, tmp.name, meshes, dev,
+                           recorders={"dp2 one card": list(recs.values())},
+                           capture_order="TCZYX", chunk=chunk)
+    same_plate(runs, "dp1", tracked, "tracked plate")
+    shard_launches(runs, "dp1", meshes, n_pos, "tracked plate")
+    lmax = [max(int(np.max(m)) for seg in ("segment_nuclei", "segment_cell")
+                for m in e["state"]["data"][seg]) for e in runs["dp1"][0]]
+    if not (max(lmax[:2]) <= 64 < lmax[2]):
+        raise AssertionError(f"tracked plate: largest labels {lmax}; only the last position "
+                             "(the second shard's) should pass 64")
+    for tag, r in runs.items():
+        if r[4] != {"cap": 256, "u8": max(lmax) <= 255}:
+            raise AssertionError(f"tracked plate {tag}: state after {r[4]}")
+    for tag in runs:
+        same_saves(os.path.join(tmp.name, tag, "steps"), os.path.join(tmp.name, "dp1", "steps"))
+    stats["tracked_plate"] = {tag: {"s": r[3], "field_tps_per_s": n_pos * ntps / r[3],
+                                    "launches": r[1], "shards": r[2]} for tag, r in runs.items()}
+    log(f"[multi] tracked plate: largest labels per position {lmax}; every mesh bit-equal to "
+        f"dp = 1 (profiles, labels, tracks, saves); both shards widened at once")
+    stats["a_s"] = time.perf_counter() - t_a
+    tmp.cleanup()
+    rows = dp_shard_rows(recs, runs["dp2 one card"][1], torch.device(first))
+    stats.update(ranks_part(dev, first))
+    log(f"[multi] (a) {stats['a_s']:.1f} s, (b)+(c) {stats['bc_s']:.1f} s (ranks "
+        f"{stats['ranks_s']:.1f} s); {stats['card']}")
+    return stats, rows
+
+
+def dp_shard_rows(recs: dict, launches: dict, dev) -> dict:
+    """Kernels 1-5 at the tracked plate's shard shapes (recorded per shard
+    stream in its dp = 2 run on one card): launched from two threads at
+    once, each shard's on a stream of its own, and held to plain
+    (:func:`concurrent_shard_checks`); then timed at the larger shard's
+    shapes as rows "... (dp shards)" of the ``kernels`` line, with the
+    launches of that run."""
+    streams = {frozenset(r.by_stream) for r in recs.values()}
+    if len(streams) != 1 or len(next(iter(streams))) != 2:
+        raise AssertionError("the dp = 2 run's kernels were not recorded on two shard streams: "
+                             + str({k: len(r.by_stream) for k, r in recs.items()}))
+    per_shard = sorted(({k: r.by_stream[st] for k, r in recs.items()} for st in next(iter(streams))),
+                       key=lambda a: -a["successor_prop"][0].shape[0])
+    shapes = [tuple(a["successor_prop"][0].shape) for a in per_shard]
+    errs = concurrent_shard_checks(per_shard, dev)
+    log(f"[report] kernels 1-5 from two shard threads, each on its own stream, at once, at the "
+        f"tracked plate's shard shapes (successor_prop {shapes}): every result equal to plain "
+        f"(the sums within the summation bound), max |kernel - plain| {errs}")
+    log(f"[report] kernels 1-5 at the larger shard's shapes (launches: the tracked plate's dp = 2 "
+        f"run on one card; {card()}):")
+    rows = {}
+    for name, row in measure_kernels(per_shard[0], launches).items():
+        row.update(name=name + DP_SHARDS, max_abs_err=max(row["max_abs_err"], errs[name]),
+                   shard_shapes=[list(a[name][0].shape) for a in per_shard])
+        rows[name + DP_SHARDS] = row
+    return rows
+
+
+def ranks_part(dev, first: str) -> dict:
+    """Phase 10 (b) and (c): 4 gloo ranks on ``first`` (dp 2 x sp 2), the
+    sharded train step and the sp forward, against one process on
+    ``dev``."""
+    from aliby_tpu_torch.extract.tolerances import (
+        GRAD_FLOOR_ATOL,
+        GRAD_RTOL,
+        LOSS_RTOL,
+        gradient_excess,
+        update_excess,
+        within_model_tolerance,
+    )
+    from aliby_tpu_torch.models import training
+    from aliby_tpu_torch.models.cpnet import tf32_off
+    from aliby_tpu_torch.models.unet import ConvBlock
+    from aliby_tpu_torch.parallel import dryrun
+    from aliby_tpu_torch.parallel.mesh import sp_rows
+
+    stats = {}
+    t_b = time.perf_counter()
+    ranks = dryrun.spawn_ranks([
+        {"name": "train", "kind": "train", "args": dict(MULTI_TRAIN)},
+        {"name": "f32", "kind": "forward", "args": dict(MULTI_FORWARD, dtype="float32")},
+        {"name": "bf16", "kind": "forward", "args": dict(MULTI_FORWARD, dtype="bfloat16")},
+    ], [first] * 4, dp=2, sp=2, backend="gloo")
+    stats["ranks_s"] = time.perf_counter() - t_b
+    # the one-process references on the same card
+    feats, batch, size, steps = (MULTI_TRAIN[k] for k in ("feats", "batch", "size", "steps"))
+    initial = dryrun.make_model(feats, "float32", None, 0, "cpu").state_dict()
+    model = dryrun.make_model(feats, "float32", None, 0, dev)
+    optimizer, scheduler = training.adamw(model.parameters(), MULTI_TRAIN["lr"])
+    first = []
+    optimizer.register_step_pre_hook(lambda *a: first.append(
+        {n: p.grad.detach().cpu().numpy() for n, p in model.named_parameters()}))
+    step = training.make_train_step(model, optimizer, scheduler)
+    rng = np.random.default_rng(0)
+    want, one_s = [], []
+    for _ in range(steps):
+        b = training.synthetic_batch(rng, batch, size, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        m = step(b)
+        sync()
+        one_s.append(time.perf_counter() - t0)
+        want.append({k: float(v) for k, v in m.items()})
+    got = ranks[0]["train"]["metrics"]
+    for r in ranks[1:]:
+        if r["train"]["metrics"] != got or any(
+                not torch.equal(p, ranks[0]["train"]["params"][k])
+                for k, p in r["train"]["params"].items()):
+            raise AssertionError("sharded train step: the ranks' parameters differ")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in w:
+            if abs(g[k] - w[k]) > LOSS_RTOL * abs(w[k]):
+                raise AssertionError(f"sharded train step {i}: {k} {g[k]} vs one process {w[k]}")
+    # the first batch's global gradient, at the f32 rule of one process
+    # against JAX on the CPU (the ranks' blocks are other shapes, for which
+    # cuDNN may pick other algorithms)
+    rtol = GRAD_RTOL
+    grads = gradient_excess({k: v.numpy() for k, v in ranks[0]["train"]["grads"].items()},
+                            first[0], rtol, GRAD_FLOOR_ATOL)
+    worst_grad = max(grads.items(), key=lambda kv: kv[1][0])
+    if worst_grad[1][0] > 1:
+        raise AssertionError(f"sharded train step: first gradient beyond the rule at {worst_grad}")
+    # a conv0 bias whose GroupNorm holds one channel a group is removed by
+    # it: its gradient is rounding only (none at the flagship widths)
+    noise = frozenset(f"{name}.conv0.bias" for name, m in model.named_modules()
+                      if isinstance(m, ConvBlock) and m.norm1.num_groups == m.conv0.bias.numel())
+    excess = update_excess(ranks[0]["train"]["params"],
+                           {k: v.cpu() for k, v in model.state_dict().items()}, initial,
+                           MULTI_TRAIN["lr"] * steps, noise=noise)
+    worst = max(excess.items(), key=lambda kv: kv[1])
+    if worst[1] > 1:
+        raise AssertionError(f"sharded train step: parameters beyond the rule at {worst}")
+    heat = [r["train"]["diffuse_heat"] for r in ranks]
+    shard_ms = [1e3 * statistics.median(r["train"]["seconds"][1:]) for r in ranks]
+    stats["train"] = {"losses": [g["loss"] for g in got], "one_process_losses":
+                      [w["loss"] for w in want], "worst_update": worst,
+                      "worst_first_gradient": (worst_grad[0], worst_grad[1][0]),
+                      "ms_step_2x2": max(shard_ms), "ms_step_one_process":
+                      1e3 * statistics.median(one_s[1:]), "diffuse_heat_launches": heat}
+    log(f"[multi] (b) sharded train step, widths {feats}, {batch} x {size}^2 f32, dp 2 x sp 2 "
+        f"gloo ranks on one card: losses {[round(g['loss'], 6) for g in got]} vs one process "
+        f"{[round(w['loss'], 6) for w in want]}; first gradient: worst {worst_grad[0]} at "
+        f"{worst_grad[1][0]:.3g} of rtol {rtol}; worst update (L2) {worst[0]} at "
+        f"{worst[1]:.3g} of its limit; parameters the same bits on all 4 ranks; diffuse_heat launches per rank "
+        f"{heat}; ms a step (steps 2-3, median) {max(shard_ms):.1f} (slowest rank) vs one "
+        f"process {stats['train']['ms_step_one_process']:.1f}")
+    # (c) the sp forward at 1080^2
+    x = torch.from_numpy(dryrun.forward_inputs(MULTI_FORWARD["batch"], MULTI_FORWARD["size"],
+                                               MULTI_FORWARD["seed"])).to(dev)
+    rows = sp_rows(MULTI_FORWARD["size"], 2, 8)
+    for dtype in ("f32", "bf16"):
+        blocks = [r[dtype]["pred"] for r in ranks]
+        if sorted(b.shape[1] for b in blocks) != sorted(rows * 2):
+            raise AssertionError(f"sp forward {dtype}: blocks of {[b.shape for b in blocks]}")
+        pred = dryrun.assemble([r[dtype] for r in ranks], MULTI_FORWARD["batch"],
+                               MULTI_FORWARD["size"])
+        net = dryrun.make_model(FLAGSHIP, "float32" if dtype == "f32" else "bfloat16",
+                                "bundled", 0, dev).eval()
+        with torch.no_grad(), (tf32_off() if dtype == "f32" and dev.type == "cuda"
+                               else contextlib.nullcontext()):
+            sync()
+            t0 = time.perf_counter()
+            one = net(x).float()
+            sync()
+            one_ms = (time.perf_counter() - t0) * 1e3
+        one = one.cpu().numpy()
+        err = float(np.abs(pred.numpy() - one).max())
+        if dtype == "f32":
+            ok = np.allclose(pred.numpy(), one, rtol=1e-4, atol=1e-4)
+        else:
+            ok = within_model_tolerance(pred.numpy(), one, "bf16")
+        if not ok:
+            raise AssertionError(f"sp forward {dtype}: max |diff| {err} beyond the rule")
+        sp_ms = max(r[dtype]["seconds"] for r in ranks) * 1e3
+        stats[f"forward_{dtype}"] = {"max_abs_err": err, "scale": float(np.abs(one).max()),
+                                     "ms_sp2": sp_ms, "ms_one_process": one_ms}
+        log(f"[multi] (c) sp forward {dtype}, {MULTI_FORWARD['batch']} x "
+            f"{MULTI_FORWARD['size']}^2 in blocks of {rows} rows: max |diff| "
+            f"{err:.3g} (largest |value| {np.abs(one).max():.3g}); ms {sp_ms:.1f} (slowest "
+            f"rank, 4 on one card) vs one process {one_ms:.1f}")
+    stats["bc_s"] = time.perf_counter() - t_b
+    if min(heat) <= 0:  # every rank renders its targets on the card
+        raise AssertionError(f"sharded train step: diffuse_heat launches per rank {heat}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3250,6 +3694,11 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     phase_done("1 (build)")
+    if sys.argv[1:] == ["--phase", "10"]:  # a quick run of the newest phase alone
+        multi_device_phase(dev)
+        phase_done("10 (several devices)")
+        log("chip_smoke: phase 10 alone; no result line")
+        return 0
 
     # -------------------------------------------------------------- 2 kernels
     kernel_checks(np.random.default_rng(0), dev)
@@ -3433,10 +3882,16 @@ def main() -> int:
     rows.update(plate_rows)
     phase_done("9 (example 01 from a TIFF plate)")
 
+    # ------------------------------------------------------ 10 several devices
+    multi, multi_rows = multi_device_phase(dev)
+    rows.update(multi_rows)
+    phase_done("10 (several devices: example 04, the sharded train step, the sp forward)")
+
     log(json.dumps({"slice": {"fields_per_s": fields_s, "batch_ms": t_med * 1e3,
                               "objects": counts, "field_1080_ms": t_big * 1e3},
                     "fused example-01": ex01_stats, "fused default bank": fused_stats,
-                    "zoo": zoo, "training": training, "tiff plate": plate}))
+                    "zoo": zoo, "training": training, "tiff plate": plate,
+                    "several devices": multi}))
     print(json.dumps({"kernels": [rows[name] for name in REPLACES]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -217,7 +217,6 @@ RENAMED = {("models/segment.py", "CellposeTPU"): "CellposeTorch"}
 # names with no counterpart, and why
 NOT_PORTED = {
     "external_data.py": "its fetcher needs the network",
-    "parallel/mesh.py": "several GPUs, ROADMAP queue 1 item 7",
     **{f"models/cpnet.py:{n}": "Flax modules of CPnetFlax: the port's CPnet is torch and loads "
        "the published state_dict itself" for n in (
            "BatchConv", "BatchConvStyle", "CPnetFlax", "ResDown", "ResUp", "TorchBatchNorm",

@@ -36,7 +36,8 @@ def test_files_found():
                    "utils/profiling.py", "postprocess/cells.py", "postprocess/signal.py",
                    "postprocess/indexing.py", "postprocess/progress.py", "logparse/grammar.py",
                    "logparse/swainlab.py", "logparse/metadata.py", "io/h5compat.py",
-                   "native/__init__.py", "io/jxl.py"):
+                   "native/__init__.py", "io/jxl.py", "parallel/mesh.py",
+                   "parallel/spatial.py", "parallel/dryrun.py"):
         assert f"aliby_tpu_torch/{module}" in scanned, module
 
 

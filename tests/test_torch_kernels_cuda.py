@@ -983,3 +983,166 @@ def test_f32_train_step_on_the_card_matches_the_cpu(dev):
     print(f"f32 card vs CPU: loss rel {abs(loss_g - loss_c) / abs(loss_c):.3g}, worst gradient "
           f"{worst[0]} at {worst[1][0]:.3g} of its limit")
     assert worst[1][0] <= 1, worst
+
+
+def test_every_kernel_on_a_second_card_from_a_thread_on_device_0(dev):
+    """The C entries launch on the calling thread's current device: each
+    wrapper makes its tensors' card current. Every kernel on ``cuda:1``,
+    called from a thread whose current device is 0, equals its plain
+    version (the sums: the kernel's order on the CPU), and the thread's
+    current device is 0 again after each call."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards (a launch on cuda:1 from a thread on device 0)")
+    d1 = torch.device("cuda", 1)
+    rng = np.random.default_rng(21)
+    dcode, key = (torch.from_numpy(a).to(d1) for a in _successors(rng, 3, 200, 312))
+    labels = torch.from_numpy(rng.integers(0, 6, (2, 130, 140)).astype(np.int32)).to(d1)
+    source = torch.from_numpy(rng.random((2, 130, 140)).astype(np.float32)).to(d1)
+    vals = torch.from_numpy(rng.normal(0, 1, (4, 9000, 32)).astype(np.float32)).to(d1)
+    bins = torch.from_numpy(rng.integers(-1, 70, (4, 9000)).astype(np.int32)).to(d1)
+    table = torch.from_numpy(rng.normal(0, 1, (4, 65, 3)).astype(np.float32)).to(d1)
+    calls = {
+        "successor_prop": lambda: stencil.successor_prop(dcode, key, n_prop=96),
+        "diffuse_heat": lambda: stencil.diffuse_heat(labels, source, n_iter=96),
+        "binned_sum_cols_batched": lambda: segsum.binned_sum_cols_batched(vals, bins, 65),
+        "segment_sum_matmul": lambda: segsum.segment_sum_matmul(vals[0], bins[0], 64),
+        "binned_minmax_batched": lambda: segsum.binned_minmax_batched(vals[..., :3], bins, 65),
+        "table_lookup_batched": lambda: segsum.table_lookup_batched(table, bins),
+    }
+    got, seen = {}, []
+
+    def work():
+        torch.cuda.set_device(0)
+        for name, call in calls.items():
+            got[name] = call()
+            seen.append(torch.cuda.current_device())
+        torch.cuda.synchronize(d1)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and len(got) == len(calls) and seen == [0] * len(calls)
+    assert torch.equal(got["successor_prop"], stencil.successor_prop_plain(dcode, key, 96))
+    assert torch.equal(got["diffuse_heat"], stencil.diffuse_heat_plain(labels, source, 96))
+    assert torch.equal(got["binned_sum_cols_batched"].cpu(),
+                       segsum.binned_sum_cols_batched_chunked(vals.cpu(), bins.cpu(), 65))
+    assert torch.equal(got["segment_sum_matmul"].cpu(),
+                       segsum.segment_sum_matmul_chunked(vals[0].cpu(), bins[0].cpu(), 64))
+    for g, w in zip(got["binned_minmax_batched"],
+                    segsum.binned_minmax_batched_plain(vals[..., :3], bins, 65)):
+        assert _equal_with_nan(g, w)
+    assert torch.equal(got["table_lookup_batched"],
+                       segsum.table_lookup_batched_plain(table, bins))
+
+
+def test_two_shards_on_one_card_give_the_one_device_bits(dev):
+    """The dp-sharded fused step with both shards on one card (each in its
+    own thread, on its own stream): labels and the feature block equal the
+    one-device step's on the concatenated batch, the shared state widens
+    with it, and each shard launched every main-path kernel."""
+    from aliby_tpu_torch.engine import builders
+    from aliby_tpu_torch.engine.compiled import try_compile
+    from aliby_tpu_torch.engine.fused import ShardedStep
+    from aliby_tpu_torch.test_data import cellpainting_fields
+
+    pipeline = builders.build_pipeline_steps(
+        channels_to_segment={"nuclei": 0, "cell": 3}, channels_to_extract=[0, 3],
+        features_to_extract=("intensity", "sizeshape"),
+        cp_measure_feature_kwargs={"intensity": {"edge_measurements": False}})
+    pixels = np.concatenate(cellpainting_fields(4, 256, seed=7))
+    fused = try_compile(pipeline, device=dev).fused
+    fused.state.update(cap=16, u8=True)
+    want = fused(pixels)
+    want_state = dict(fused.state)
+    sharded = ShardedStep([fused, fused])
+    sharded.state.update(cap=16, u8=True)
+    try:
+        for _ in range(2):  # the second call reuses the shards' streams and tickets
+            got = sharded([pixels[:3], pixels[3:]])
+            torch.cuda.synchronize()
+            for g, w in zip(got["labels"], want["labels"]):
+                np.testing.assert_array_equal(g, w)
+            for g_obj, w_obj in zip(got["features"], want["features"]):
+                for (gn, ga), (wn, wa) in zip(g_obj, w_obj):
+                    assert gn == wn and np.array_equal(ga, wa, equal_nan=True)
+    finally:
+        sharded.close()
+    assert sharded.state == want_state and want_state["cap"] > 16
+    for counts in sharded.shard_launches:
+        assert all(counts.get(k, 0) > 0 for k in (
+            "successor_prop", "diffuse_heat", "binned_sum_cols_batched",
+            "binned_minmax_batched", "table_lookup_batched")), counts
+
+
+def test_mesh_runner_with_a_lagging_shard_gives_the_dp1_bits(dev, tmp_path):
+    """``run_positions_mesh_states`` on two shards of one card, where shard
+    0's stream sleeps before each of its steps, so that its feature trees
+    and tracking still run while the runner copies the next chunk's blocks:
+    the profiles, labels and tracker states equal the dp = 1 run's (a block
+    freed back to another stream's pool while a shard still reads it would
+    be overwritten by that copy)."""
+    from aliby_tpu_torch.engine import builders
+    from aliby_tpu_torch.engine.compiled import try_compile_sharded
+    from aliby_tpu_torch.engine.core import profile_columns
+    from aliby_tpu_torch.engine.fused import ShardedStep
+    from aliby_tpu_torch.io import zarrlite
+    from aliby_tpu_torch.io.dataset import DatasetZarr
+    from aliby_tpu_torch.parallel import pipeline_mesh
+    from aliby_tpu_torch.parallel.mesh import make_mesh
+    from aliby_tpu_torch.test_data import cellpainting_movie
+
+    class Lagging(ShardedStep):
+        def _in_shard(self, i, wait, fn, args):
+            def late(*a):
+                torch.cuda._sleep(100_000_000)  # ~50 ms on shard 0's stream
+                return fn(*a)
+
+            return super()._in_shard(i, wait, late if i == 0 else fn, args)
+
+    def lagging(pipeline, devices):
+        steps, sharded = try_compile_sharded(pipeline, devices)
+        sharded.close()
+        return steps, Lagging(sharded.runs)
+
+    movie = cellpainting_movie(3, 4, 256, seed=12, n_cells=20)
+    for p in range(3):
+        zarrlite.write_array(tmp_path / "store" / f"pos{p}", movie[p],
+                             chunks=(1, 1, 1, 256, 256))
+    positions = DatasetZarr(tmp_path / "store").get_position_ids()
+    pipeline = builders.build_pipeline_steps(
+        channels_to_segment={"nuclei": 0, "cell": 3}, channels_to_extract=[0, 3],
+        features_to_extract=("intensity", "sizeshape"),
+        cp_measure_feature_kwargs={"intensity": {"edge_measurements": False}})
+    for obj in ("nuclei", "cell"):
+        pipeline["steps"][f"track_{obj}"] = {"kind": "stitch", "max_labels": 256,
+                                             "iou_threshold": 0.25}
+        pipeline["passed_data"][f"track_{obj}"] = [("masks", f"segment_{obj}")]
+    pipeline.update(ntps=4, compiled=True)
+    want, _ = pipeline_mesh.run_positions_mesh_states(
+        pipeline, positions, tmp_path / "dp1", capture_order="TCZYX", device=dev, chunk=2)
+    real = pipeline_mesh.try_compile_sharded
+    pipeline_mesh.try_compile_sharded = lagging
+    try:
+        got, _ = pipeline_mesh.run_positions_mesh_states(
+            pipeline, positions, tmp_path / "dp2", capture_order="TCZYX", chunk=2,
+            mesh=make_mesh(devices=["cuda:0"] * 2))
+    finally:
+        pipeline_mesh.try_compile_sharded = real
+    for g, w in zip(got, want):
+        gc, wc = (profile_columns(e["state"], e["pipeline"]) for e in (g, w))
+        assert list(gc) == list(wc)
+        for k in wc:
+            assert np.array_equal(np.asarray(gc[k]), np.asarray(wc[k]),
+                                  equal_nan=np.asarray(wc[k]).dtype.kind == "f"), k
+        for step in ("segment_nuclei", "segment_cell"):
+            a, b = g["state"]["data"][step], w["state"]["data"][step]
+            assert len(a) == len(b) == 4
+            assert all(np.array_equal(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb))
+        for step in ("track_nuclei", "track_cell"):
+            a, b = g["state"]["data"][step], w["state"]["data"][step]
+            assert len(a) == len(b) and all(
+                x["max_label"] == y["max_label"]
+                and all(np.array_equal(u, v) for u, v in zip(x["labels"], y["labels"]))
+                for x, y in zip(a, b)), step
