@@ -15,6 +15,12 @@ reference: the JAX package on the CPU (``tests/test_torch_features.py``,
     object's area times its largest centred coordinate |x - cx| or
     |y - cy| (from its bounding box and centre); the first normalised
     moments, the same over area * sqrt(area);
+  * the Hu moments 2 to 6 (``AreaShape_HuMoment_k``), polynomials of the
+    normalised moments of order 2 and 3 whose terms cancel (a near-symmetric
+    object gives 1e-15 from terms of 1e-11): their polynomial with every
+    moment by its absolute value and every difference made a sum, from the
+    reference's ``AreaShape_NormalizedMoment_*`` (a one-cell 64^2 field
+    read 1.78942e-15 against 1.78945e-15, 1.3e-3 of this atol);
   * the mass displacement |intensity centroid - centroid|: the centroid's
     coordinates, |x| + |y|;
   * the standard deviations sqrt(E[x^2] - mean^2): a near-constant object
@@ -142,6 +148,24 @@ _FIRST_MOMENTS = frozenset(f"AreaShape_{kind}Moment_{i}_{j}"
                            for kind in ("Central", "Normalized") for i, j in ((0, 1), (1, 0)))
 
 
+_HU_CANCELLING = frozenset(f"AreaShape_HuMoment_{k}" for k in range(2, 7))
+
+
+def _hu_terms(k: int, ref: Callable[[str], np.ndarray]) -> np.ndarray:
+    """The magnitude of the terms of ``AreaShape_HuMoment_k`` (k = 2..6,
+    ``extract/features.py`` ``sizeshape``): its polynomial in the normalised
+    moments, each by its absolute value, with every difference a sum."""
+    e = {(i, j): np.abs(ref(f"AreaShape_NormalizedMoment_{i}_{j}"))
+         for i, j in ((2, 0), (0, 2), (1, 1), (3, 0), (0, 3), (2, 1), (1, 2))}
+    p, q = e[3, 0] + e[1, 2], e[2, 1] + e[0, 3]
+    u, v = e[3, 0] + 3 * e[1, 2], 3 * e[2, 1] + e[0, 3]
+    return {2: u * u + v * v,
+            3: p * p + q * q,
+            4: u * p * (p * p + 3 * q * q) + v * q * (3 * p * p + q * q),
+            5: (e[2, 0] + e[0, 2]) * (p * p + q * q) + 4 * e[1, 1] * p * q,
+            6: v * p * (p * p + 3 * q * q) + u * q * (3 * p * p + q * q)}[k]
+
+
 def _largest(values: np.ndarray) -> float:
     ok = ~np.isnan(values)
     return float(np.abs(values[ok]).max()) if ok.any() else 0.0
@@ -171,6 +195,8 @@ def tolerance(feat: str, ref: Callable[[str], np.ndarray]):
         if "Normalized" in feat:
             terms = terms / (area * np.sqrt(area))
         return rtol, 1e-6 * np.nan_to_num(terms)
+    if feat in _HU_CANCELLING:
+        return rtol, 1e-6 * np.nan_to_num(_hu_terms(int(feat.rsplit("_", 1)[1]), ref))
     if feat == "Intensity_MassDisplacement":
         terms = (np.abs(ref("Location_CenterMassIntensity_X"))
                  + np.abs(ref("Location_CenterMassIntensity_Y")))

@@ -322,6 +322,75 @@ def train_synthetic(n_steps: int = 200, batch: int = 4, size: int = 128, lr: flo
     return model
 
 
+# -- the held-out gate of the training scripts ----------------------------------
+
+
+HELDOUT_SEED = 987654
+
+
+def heldout_sets(n_plain: int = 6, n_budding: int = 6, test_data=None,
+                 seed: int = HELDOUT_SEED) -> dict:
+    """The fixed held-out renders that the JAX package's
+    ``scripts/train_flagship.py`` ``heldout_iou`` draws (seed 987654, the
+    same draws in the same order; another ``seed`` draws another set the
+    same way): set name -> list of ((2, 128, 128) f32 image, ground-truth
+    labels). ``test_data`` is a module with ``render_cells`` and
+    ``render_budding_movie`` to draw them with (this package's by
+    default)."""
+    cells_fn, budding_fn = ((render_cells, render_budding_movie) if test_data is None else
+                            (test_data.render_cells, test_data.render_budding_movie))
+    rng = np.random.default_rng(seed)
+    plain = []
+    for _ in range(n_plain):
+        cells, nuclei, labels = cells_fn(128, int(rng.integers(6, 16)), rng)
+        noise = rng.normal(0, 0.03, cells.shape).astype(np.float32)
+        plain.append((np.stack([cells + noise, nuclei + noise]), labels))
+    budding = []
+    for _ in range(n_budding):
+        frames, labels_t, _ = budding_fn(128, 3, rng, n_mothers=int(rng.integers(4, 9)))
+        img2 = np.stack([frames[-1].astype(np.float32), np.zeros_like(frames[-1], np.float32)])
+        budding.append((img2, labels_t[-1]))
+    nuclei_set = []
+    for _ in range(n_plain):
+        cells, nuclei, _, nuc_labels = cells_fn(128, int(rng.integers(6, 16)), rng,
+                                                with_nucleus_labels=True)
+        noise = rng.normal(0, 0.03, cells.shape).astype(np.float32)
+        nuclei_set.append((np.stack([nuclei + noise, (cells - nuclei).clip(0) + noise]),
+                           nuc_labels))
+    return {"plain": plain, "budding": budding, "nuclei": nuclei_set}
+
+
+def mean_iou(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Mean over the ground truth's objects of the IoU with the predicted
+    object that covers most of it (0 where none does)."""
+    scores = []
+    for lbl in range(1, int(gt.max()) + 1):
+        g = gt == lbl
+        if not g.any():
+            continue
+        cand = np.bincount(pred[g].reshape(-1))
+        cand[0] = 0
+        best = 0.0
+        if cand.size > 1 and cand.max() > 0:
+            p = pred == int(cand.argmax())
+            best = (g & p).sum() / (g | p).sum()
+        scores.append(best)
+    return float(np.mean(scores)) if scores else 0.0
+
+
+def heldout_scores(segment_tiles: Callable, sets: dict) -> dict:
+    """Each set's mean of :func:`mean_iou` over its images, rounded to 4
+    places as the reference rounds it. ``segment_tiles`` maps (N, 2, H, W)
+    to N label maps (an engine's ``segment_tiles``) and takes every image
+    of every set in one call: ``CellposeTorch`` runs the U-Net in
+    micro-batches whose size follows the image size alone, so an image's
+    labels do not depend on its batch."""
+    images = np.stack([img for items in sets.values() for img, _ in items])
+    preds = iter(segment_tiles(images))
+    return {name: round(float(np.mean([mean_iou(next(preds), gt) for _, gt in items])), 4)
+            for name, items in sets.items()}
+
+
 # -- checkpoints: f16 Flax msgpack, the JAX package's bytes --------------------
 
 

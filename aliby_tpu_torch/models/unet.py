@@ -169,6 +169,46 @@ class CellposeNet(nn.Module):
         return out.permute(0, 2, 3, 1).to(torch.float32)
 
 
+@torch.no_grad()
+def forward_f64(model: CellposeNet, x: torch.Tensor) -> torch.Tensor:
+    """The forward of ``model``'s parameters in f64 throughout, written
+    out apart from :meth:`CellposeNet.forward` (GroupNorm by mean and
+    variance), a reference for the rounding of the f32 and bf16 forwards:
+    (B, H, W, C_in) -> (B, H, W, 3) f64."""
+
+    def conv(m, h):
+        k = m.weight.shape[-1]
+        return F.conv2d(h, m.weight.double(), m.bias.double(), padding=k // 2)
+
+    def norm(m, h):
+        B, C, H, W = h.shape
+        g = h.reshape(B, m.num_groups, -1)
+        var = g.var(dim=-1, unbiased=False, keepdim=True)
+        g = (g - g.mean(dim=-1, keepdim=True)) / torch.sqrt(var + m.eps)
+        return g.reshape(B, C, H, W) * m.weight.double().view(1, C, 1, 1) \
+            + m.bias.double().view(1, C, 1, 1)
+
+    def block(b, h):
+        y = conv(b.conv1, F.silu(norm(b.norm1, conv(b.conv0, F.silu(norm(b.norm0, h))))))
+        return (h if b.proj is None else conv(b.proj, h)) + y
+
+    h = conv(model.stem, x.permute(0, 3, 1, 2).double())
+    skips = []
+    for i, (a, b) in enumerate(model.down):
+        h = block(b, block(a, h))
+        skips.append(h)
+        if i < len(model.feats) - 1:
+            h = F.avg_pool2d(h, 2, 2)
+    style = h.mean(dim=(2, 3))
+    style = style / torch.clamp_min(torch.linalg.vector_norm(style, dim=-1, keepdim=True), 1e-6)
+    for i in reversed(range(len(model.feats) - 1)):
+        h = conv(model.up_reduce[i], F.interpolate(h, scale_factor=2, mode="nearest"))
+        s = F.linear(style, model.style[i].weight.double(), model.style[i].bias.double())
+        a, b = model.up[i]
+        h = block(b, block(a, h + skips[i] + s[:, :, None, None]))
+    return conv(model.head, h).permute(0, 2, 3, 1)
+
+
 # Flax's lecun_normal: a standard normal truncated at +-2, scaled so that
 # the truncated draw has variance 1 / fan_in (the constant is the std of
 # the standard normal truncated at +-2)

@@ -91,47 +91,10 @@ def heldout_iou(weights_path, device, n_plain: int = 6, n_budding: int = 6) -> d
     (``scripts/train_flagship.py`` ``heldout_iou``), with the flow-error QC
     on (0.4)."""
     from aliby_tpu_torch.models.segment import CellposeTorch
-    from aliby_tpu_torch.test_data import render_budding_movie, render_cells
+    from aliby_tpu_torch.models.training import heldout_scores, heldout_sets
 
     eng = CellposeTorch(pretrained_path=weights_path, flow_threshold=0.4, device=device)
-    rng = np.random.default_rng(987654)  # the same held-out set every time
-
-    def mean_iou(img2, gt):
-        pred = eng.segment_tiles(img2[None])[0]
-        scores = []
-        for lbl in range(1, int(gt.max()) + 1):
-            g = gt == lbl
-            if not g.any():
-                continue
-            cand = np.bincount(pred[g].reshape(-1))
-            cand[0] = 0
-            best = 0.0
-            if cand.size > 1 and cand.max() > 0:
-                p = pred == int(cand.argmax())
-                best = (g & p).sum() / (g | p).sum()
-            scores.append(best)
-        return float(np.mean(scores)) if scores else 0.0
-
-    plain = []
-    for _ in range(n_plain):
-        cells, nuclei, labels = render_cells(128, int(rng.integers(6, 16)), rng)
-        noise = rng.normal(0, 0.03, cells.shape).astype(np.float32)
-        plain.append(mean_iou(np.stack([cells + noise, nuclei + noise]), labels))
-    budding = []
-    for _ in range(n_budding):
-        frames, labels_t, _ = render_budding_movie(128, 3, rng, n_mothers=int(rng.integers(4, 9)))
-        img2 = np.stack([frames[-1].astype(np.float32), np.zeros_like(frames[-1], np.float32)])
-        budding.append(mean_iou(img2, labels_t[-1]))
-    nuclei_scores = []
-    for _ in range(n_plain):
-        cells, nuclei, _, nuc_labels = render_cells(128, int(rng.integers(6, 16)), rng,
-                                                    with_nucleus_labels=True)
-        noise = rng.normal(0, 0.03, cells.shape).astype(np.float32)
-        img2 = np.stack([nuclei + noise, (cells - nuclei).clip(0) + noise])
-        nuclei_scores.append(mean_iou(img2, nuc_labels))
-    return {"plain": round(float(np.mean(plain)), 4),
-            "budding": round(float(np.mean(budding)), 4),
-            "nuclei": round(float(np.mean(nuclei_scores)), 4)}
+    return heldout_scores(eng.segment_tiles, heldout_sets(n_plain, n_budding))
 
 
 if __name__ == "__main__":

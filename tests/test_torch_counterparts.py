@@ -216,7 +216,6 @@ MODULES = {"ops/pallas_segsum.py": "ops/segsum.py", "ops/pallas_stencil.py": "op
 RENAMED = {("models/segment.py", "CellposeTPU"): "CellposeTorch"}
 # names with no counterpart, and why
 NOT_PORTED = {
-    "external_data.py": "its fetcher needs the network",
     **{f"models/cpnet.py:{n}": "Flax modules of CPnetFlax: the port's CPnet is torch and loads "
        "the published state_dict itself" for n in (
            "BatchConv", "BatchConvStyle", "CPnetFlax", "ResDown", "ResUp", "TorchBatchNorm",

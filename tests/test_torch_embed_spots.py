@@ -91,6 +91,47 @@ def test_make_embedder_matches_jax(dtype, dim, channels):
     assert within_model_tolerance(got, want, "embed" if dtype == "bf16" else dtype)
 
 
+def _projects_the_f32_style(got: np.ndarray, style: torch.Tensor, proj: torch.Tensor) -> bool:
+    """The embedding is the f32 style times the projection in f32, bit for
+    bit on the CPU."""
+    return style.dtype == torch.float32 and np.array_equal(got, (style @ proj).numpy())
+
+
+def test_bf16_style_reaches_the_projection_in_f32(monkeypatch):
+    """The bf16 embedder's style vector is f32 (the U-Net's f32 mean of its
+    bottleneck, normalised) and is projected in f32. The ``"embed"`` rule
+    cannot see one bf16 rounding of the style before the projection (max
+    |diff| ~3e-4 against its 2e-3); this test does: with the U-Net's style
+    rounded to bf16, the embedding fails it."""
+    from aliby_tpu_torch.models.unet import CellposeNet
+    from aliby_tpu_torch.models.weights import params_from_flax, read_flax_checkpoint
+
+    tiles, seed, dim = _tiles(n=4, z=1), 3, 64
+    net = CellposeNet(in_channels=2)
+    net.load_state_dict(params_from_flax(read_flax_checkpoint(BUNDLED_WEIGHTS)))
+    assert net.dtype == torch.bfloat16
+    imgs = tiles[:, :, 0]
+    x = torch.from_numpy(np.stack([imgs[:, 0], imgs[:, 1:].mean(axis=1)], axis=-1))
+    with torch.no_grad():
+        style = net.eval()(x, style_only=True)
+    assert style.dtype == torch.float32
+    assert not torch.equal(style, style.to(torch.bfloat16).float())  # f32 bits, not bf16's
+    proj = torch.from_numpy(embedder.style_projection(seed, net.feats[-1], dim))
+    got = embedder.make_embedder(dim=dim, seed=seed, device="cpu")(tiles)
+    assert _projects_the_f32_style(got, style, proj)
+
+    forward = CellposeNet.forward
+
+    def rounded_style(self, x, style_only=False, **kw):
+        out = forward(self, x, style_only=style_only, **kw)
+        return out.to(torch.bfloat16).float() if style_only else out
+
+    monkeypatch.setattr(CellposeNet, "forward", rounded_style)
+    fault = embedder.make_embedder(dim=dim, seed=seed, device="cpu")(tiles)
+    assert within_model_tolerance(fault, got, "embed")  # the rule's blind spot
+    assert not _projects_the_f32_style(fault, style, proj)
+
+
 def test_embedder_options():
     tiles = _tiles(n=2, z=1, size=32)
     custom = dict(model_kwargs={"base_features": (8, 16)}, dim=4, device="cpu")

@@ -11,13 +11,19 @@ apart (the metadata and integer-valued columns exact, float features within
 values, at least one, as ``tests/test_torch_fused.py`` holds each object's
 block). The U-Net is f32 on both sides (the runner tests' rule: bf16 labels
 differ from JAX's by a few boundary pixels). Every read of the data plane
-is a native decode. Most of the file's time is JAX's compile of the step.
+is a native decode, on both sides: the JAX package's decoder is a library
+that only this process builds (``test_torch_native.private_jax_native``; the
+JAX package links its own in place, which several workers race for). Most of
+the file's time is JAX's compile of the step.
 """
+
+from pathlib import Path
 
 import pyarrow.compute as pc
 import pytest
 import torch
 
+from aliby_tpu import native as jax_native
 from aliby_tpu.engine.builders import build_pipeline_steps as jax_build_pipeline_steps
 from aliby_tpu.io.dataset import DatasetDir as JaxDatasetDir
 from aliby_tpu.parallel.positions import stamp_image_kwargs as jax_stamp
@@ -30,6 +36,7 @@ from aliby_tpu_torch.io.dataset import DatasetDir
 from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
 from aliby_tpu_torch.pipe import run_pipeline_and_post
 from aliby_tpu_torch.test_data import get_dataset, get_dataset_path
+from test_torch_native import private_jax_native
 from test_torch_runner import assert_profiles_match
 
 torch.set_num_threads(1)
@@ -50,9 +57,23 @@ def example01(build, dtype) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("example01")
+    with private_jax_native(tmp_path_factory.mktemp("jax_native")), \
+            pytest.MonkeyPatch.context() as mp:
+        jax_decodes, decode = [], jax_native.tiff_decode
+
+        def jax_counted(path, page=0):
+            out = decode(path, page=page)
+            jax_decodes.append((path, out is not None))
+            return out
+
+        mp.setattr(jax_native, "tiff_decode", jax_counted)
+        return _runs(root, jax_decodes)
+
+
+def _runs(root, jax_decodes) -> dict:
     import jax.numpy as jnp
 
-    root = tmp_path_factory.mktemp("example01")
     regex, order = ENTRY["regex"], ENTRY["capture_order"]
     jax_pos = JaxDatasetDir(jax_dataset_path(ENTRY["name"]), regex=regex,
                             capture_order=order).get_position_ids()
@@ -63,6 +84,7 @@ def runs(tmp_path_factory):
     jax_pipe = jax_stamp(example01(jax_build_pipeline_steps, jnp.float32), jax_pos[0],
                          regex=regex, capture_order=order)
     out["jax"] = jax_run_pipeline_and_post(jax_pipe, "A01__1", root / "jax")[0]
+    out["jax_decodes"] = list(jax_decodes)
     reads, read = [], image._read_image_file
 
     def counted(path):
@@ -97,3 +119,6 @@ def test_every_read_is_a_native_decode(runs):
     files = set(runs["positions"][0]["path"])
     assert len(files) == 5 and set(runs["reads"]) == files
     assert runs["decodes"] == len(runs["reads"])
+    jax_files = {Path(p).name for p, _ in runs["jax_decodes"]}
+    assert jax_files == {Path(p).name for p in files}
+    assert all(ok for _, ok in runs["jax_decodes"]), "a JAX read fell back to imageio"

@@ -125,3 +125,52 @@ def test_feret_family(field):
     got = T.feret(torch.from_numpy(field[0]), ML)
     np.testing.assert_allclose(got["MaxFeretDiameter"].numpy(), np.asarray(mx), rtol=1e-6)
     np.testing.assert_allclose(got["MinFeretDiameter"].numpy(), np.asarray(mn), rtol=1e-6)
+
+
+def _sizeshape_pair(labels: np.ndarray):
+    """(port, JAX) sizeshape of one (H, W) label map, each value of object i
+    at [i]."""
+    want = {k: np.asarray(v) for k, v in J.sizeshape(jnp.asarray(labels), 8).items()}
+    got = {k: v[0].numpy() for k, v in T.sizeshape(torch.from_numpy(labels[None]), 8).items()}
+    return got, want
+
+
+def test_hu_moments_near_zero_are_held_to_their_terms():
+    """A Hu moment formed by cancellation: the one cell of a 64^2 Cell
+    Painting field (``cellpainting_movie(1, 3, 64, seed=5, n_cells=1)``,
+    timepoint 0, channel 3 segmented alone by the bundled U-Net in f32, as
+    the runner's mesh segments it) has ``AreaShape_HuMoment_6`` 1.78945e-15
+    from terms of 2.5e-11; the port reads 1.78942e-15. That is beyond rtol
+    1e-5 and beyond 1e-6 of the column's largest (the value itself), and
+    within 1e-6 of the magnitude of its terms."""
+    from aliby_tpu_torch.models.segment import CellposeTorch
+    from aliby_tpu_torch.test_data import cellpainting_movie
+
+    movie = cellpainting_movie(1, 3, 64, seed=5, n_cells=1)
+    image = np.stack([movie[0, 0, 3, 0].astype(np.float32), np.zeros((64, 64), np.float32)])
+    engine = CellposeTorch(model_kwargs={"dtype": torch.float32}, device="cpu")
+    labels = engine.segment_tiles(image[None])[0].astype(np.int32)
+    assert labels.max() == 1
+    got, want = _sizeshape_pair(labels)
+    g, w = got["AreaShape_HuMoment_6"][0], want["AreaShape_HuMoment_6"][0]
+    assert 0 < abs(w) < 1e-14 and abs(g - w) > 1e-5 * abs(w) + 1e-6 * abs(w)
+    for k in range(7):
+        feat = f"AreaShape_HuMoment_{k}"
+        check_feature(feat, got[feat], want[feat], lambda name: want[name])
+
+
+@pytest.mark.parametrize("k", range(2, 7))
+def test_hu_moment_rule_catches_a_relative_error_of_1e_3(field, k):
+    """On the objects of the two 96^2 fields whose Hu moment k is of
+    ordinary size (at least 1% of its terms), a relative error of 1e-3 is
+    beyond the rule on every one."""
+    feat = f"AreaShape_HuMoment_{k}"
+    want = jax.vmap(lambda l: J.sizeshape(l, ML))(jnp.asarray(field[0]))
+    for b in range(2):
+        ref = {name: np.asarray(v)[b] for name, v in want.items()}
+        w = ref[feat]
+        _, atol = tolerance(feat, lambda name: ref[name])
+        ordinary = ~np.isnan(w) & (np.abs(w) >= 1e3 * atol)  # terms = 1e6 atol
+        assert ordinary.sum() >= 3, (b, int(ordinary.sum()))
+        off = beyond_tolerance(feat, w * (1 + 1e-3), w, lambda name: ref[name])
+        assert off[ordinary].all(), (b, w[ordinary & ~off])

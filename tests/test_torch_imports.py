@@ -37,7 +37,7 @@ def test_files_found():
                    "postprocess/indexing.py", "postprocess/progress.py", "logparse/grammar.py",
                    "logparse/swainlab.py", "logparse/metadata.py", "io/h5compat.py",
                    "native/__init__.py", "io/jxl.py", "parallel/mesh.py",
-                   "parallel/spatial.py", "parallel/dryrun.py"):
+                   "parallel/spatial.py", "parallel/dryrun.py", "external_data.py"):
         assert f"aliby_tpu_torch/{module}" in scanned, module
 
 

@@ -4,9 +4,20 @@ cases of ``tests/test_native.py`` (every compression, uint8, pages, batches,
 the data plane's route), the files of ``chip_smoke.py``'s baseline-TIFF
 writer (strips, deflate, big-endian), where the library is built, the
 reference's contract when it cannot be built or loaded, the build without
-``<zlib.h>``, and several builds at once."""
+``<zlib.h>``, and several builds at once.
 
+The JAX package builds its library in place (``g++ -o
+aliby_tpu/native/_aliby_host.so``, no temporary name) and loads any file at
+that path not older than its source, once a process: under xdist several
+workers link it at once, and one that loads a half-written file keeps
+``None`` for the rest of its life. So this file (and
+``test_torch_example01_tiff.py``) points the JAX loader at a library that
+only this process builds (:func:`private_jax_native`)."""
+
+import logging
+import os
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -22,9 +33,36 @@ from chip_smoke import write_tiff
 ROOT = Path(__file__).resolve().parent.parent
 
 
+@contextmanager
+def private_jax_native(directory):
+    """The JAX package's native loader pointed at ``directory``: its own
+    ``_build()`` compiles its own source there, a file that no other process
+    writes, and loads it. Asserts that it loaded, with the loader's warnings
+    in the message; restores the loader's state on exit."""
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append
+    log = logging.getLogger("aliby_tpu")
+    Path(directory).mkdir(parents=True, exist_ok=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", Path(directory) / "_aliby_host.so")
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        log.addHandler(handler)
+        try:
+            ok = jax_native.available()
+        finally:
+            log.removeHandler(handler)
+        assert ok, "the JAX package's native library did not build or load: " + "; ".join(
+            r.getMessage() for r in records)
+        yield jax_native._LIB_PATH
+
+
 @pytest.fixture(scope="module", autouse=True)
-def built():
-    assert native.available(), "the port's native library did not build or load"
+def built(tmp_path_factory):
+    with private_jax_native(tmp_path_factory.mktemp("jax_native")):
+        assert native.available(), "the port's native library did not build or load"
+        yield
 
 
 def decoded_alike(path, want, page: int = 0) -> None:
@@ -115,6 +153,38 @@ def test_chip_smoke_writer_decodes_as_pil_reads_it(tmp_path, dtype, deflate, big
     write_tiff(f, arr, rows, deflate=deflate, big_endian=big_endian)
     assert f.read_bytes()[:2] == (b"MM" if big_endian else b"II")
     decoded_alike(f, arr)
+
+
+def test_a_half_written_jax_library_stays_none_and_the_private_one_loads(tmp_path, monkeypatch):
+    """The hazard that :func:`private_jax_native` avoids: a library at the
+    JAX loader's path that the linker has not finished (here its ELF header
+    and part of its program headers), newer than its source, is loaded as it
+    is; the load fails and the process keeps ``None`` (``_tried`` is set
+    first). (Cut past its program headers, ``dlopen`` maps segments beyond
+    the file's end and the process dies of SIGBUS.) A private path built by
+    this process loads."""
+    whole = jax_native._LIB_PATH.read_bytes()
+    assert whole[:4] == b"\x7fELF"
+    half = tmp_path / "shared" / "_aliby_host.so"
+    half.parent.mkdir()
+    cut = 64 + 56  # the ELF header and one of its program headers
+    half.write_bytes(whole[:cut])
+    newer = jax_native._SRC.stat().st_mtime + 60
+    os.utime(half, (newer, newer))
+    monkeypatch.setattr(jax_native, "_LIB_PATH", half)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_tried", False)
+    assert jax_native._load() is None and jax_native._tried
+    assert half.stat().st_size == cut  # loaded as it was, not rebuilt
+    assert jax_native._load() is None  # and None for the rest of the process
+    arr = np.arange(30, dtype=np.uint16).reshape(5, 6)
+    f = tmp_path / "x.tif"
+    Image.fromarray(arr).save(f)
+    assert jax_native.tiff_decode(f) is None
+    with private_jax_native(tmp_path / "private") as path:
+        assert path.parent == tmp_path / "private" and path.exists()
+        np.testing.assert_array_equal(jax_native.tiff_decode(f), arr)
+    assert jax_native._LIB_PATH == half and jax_native._lib is None
 
 
 def test_library_lands_under_build(tmp_path, monkeypatch):

@@ -166,6 +166,56 @@ def test_adamw_and_cosine_schedule_match_optax():
     assert schedule(4) == schedule(40) == pytest.approx(0.05e-3)
 
 
+def test_adamw_follows_optax_through_fresh_spikes():
+    """The optimizer under the loss spikes of a fresh run at peak 2e-3
+    (``scripts/torch_train_parity.py --fresh``): the full-width JAX model
+    from a fresh ``lecun_normal`` draw (the port's ``init_params(0)``) at
+    32^2, batch 2, 12 steps, one gradient sequence from the JAX loss fed to
+    optax's AdamW and to the port's. The loss jumps ~200x within 4 steps (read 11.8 -> 1287 -> 86.7
+    -> 2488). Each weight within (t ulp(max(|p_0|, |p_t|)) + 2e-5 of its
+    total movement) of optax's after step t (read: 0.76 of that at the
+    worst element): each step rounds the weight once in each framework, and
+    optax's f32 bias correction makes its update 6.4e-6 of itself too
+    large (above)."""
+    steps, peak = 12, 2e-3
+    model = FlaxNet(dtype=jnp.float32)
+    params = jax.tree_util.tree_map(jnp.asarray, flax_from_params(
+        init_params(0, in_channels=2, device="cpu", dtype=torch.float32).state_dict()))
+    tx = optax.adamw(optax.cosine_decay_schedule(peak, steps, 0.05))
+    state = tx.init(params)
+
+    def numpy_tree(tree):
+        return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+
+    start = {k: v.numpy().astype(np.float64)
+             for k, v in params_from_flax(numpy_tree(params)).items()}
+    port = {k: torch.nn.Parameter(torch.from_numpy(v.astype(np.float32)))
+            for k, v in start.items()}
+    opt, scheduler = PT.adamw(port.values(), PT.cosine_decay_schedule(peak, steps, 0.05))
+    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: JT.loss_fn(p, model, b), has_aux=True))
+    rng = np.random.default_rng(0)
+    losses, prev, moved = [], start, dict.fromkeys(start, 0.0)
+    for t in range(steps):
+        (loss, _), grads = grad_fn(params, JT.synthetic_batch(rng, 2, 32))
+        losses.append(float(loss))
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+        for k, g in params_from_flax(numpy_tree(grads)).items():
+            port[k].grad = g
+        opt.step()
+        scheduler.step()
+        want = {k: v.numpy().astype(np.float64)
+                for k, v in params_from_flax(numpy_tree(params)).items()}
+        for k, w in want.items():
+            moved[k] = moved[k] + np.abs(w - prev[k])
+            ulp = np.spacing(np.maximum(np.abs(start[k]), np.abs(w)).astype(np.float32))
+            bound = (t + 1) * ulp.astype(np.float64) + 2e-5 * moved[k]
+            got = port[k].detach().numpy().astype(np.float64)
+            assert (np.abs(got - w) <= bound).all(), (t, k, (np.abs(got - w) / bound).max())
+        prev = want
+    assert max(losses) > 100 * losses[0], losses
+
+
 def test_resumed_full_width_f32_trajectory_matches_jax():
     template = FlaxNet(dtype=jnp.float32)
     params = jax.jit(template.init)(jax.random.PRNGKey(0), jnp.zeros((1, 128, 128, 2)))

@@ -20,10 +20,12 @@ import torch.nn.functional as F
 from flax import serialization
 
 from aliby_tpu.models.training import load_params
+from aliby_tpu.models.unet import CellposeNet as FlaxNet
 from aliby_tpu.models.unet import init_params
-from aliby_tpu_torch.models.unet import CellposeNet
+from aliby_tpu_torch.models.unet import CellposeNet, forward_f64
 from aliby_tpu_torch.models.weights import (
     BUNDLED_WEIGHTS,
+    flax_from_params,
     msgpack_restore,
     params_from_flax,
     read_flax_checkpoint,
@@ -81,6 +83,43 @@ def test_cellposenet_bundled_weights(field, kind):
     with torch.no_grad():
         got = tm.eval()(torch.from_numpy(field)).numpy()
     _compare(got, want, kind)
+
+
+def test_forward_f64_and_the_bf16_error(field):
+    """``forward_f64`` on the bundled weights is the f32 forwards (JAX's
+    and the port's) within the f32 rule; and the port's bf16 forward is
+    no further from it than the Flax model compiled with every bf16
+    rounding it writes (``xla_allow_excess_precision`` off), within 5%
+    (RMS relative to the f64 output's; the bundled weights on this field
+    read port 0.01941, JAX every rounding 0.01937, JAX as XLA:CPU compiles
+    it by default 0.01821: XLA skips some roundings, e.g. a residual sum
+    reaches the next GroupNorm's normalisation unrounded)."""
+    tm = CellposeNet(dtype=torch.float32)
+    tm.load_state_dict(params_from_flax(read_flax_checkpoint(BUNDLED_WEIGHTS)))
+    params = jax.tree_util.tree_map(jnp.asarray, flax_from_params(tm.state_dict()))
+    x = torch.from_numpy(field)
+    want = forward_f64(tm, x).numpy()
+    assert want.dtype == np.float64
+    with torch.no_grad():
+        _compare(tm.eval()(x).numpy(), want, "f32")
+    _compare(np.asarray(FlaxNet(dtype=jnp.float32).apply(params, jnp.asarray(field))), want,
+             "f32")
+    model = FlaxNet()  # bf16
+
+    def error(got):
+        return np.sqrt(np.mean((np.asarray(got, np.float64) - want) ** 2) / np.mean(want ** 2))
+
+    bf16 = CellposeNet()
+    bf16.load_state_dict(tm.state_dict())
+    with torch.no_grad():
+        port = error(bf16.eval()(x).numpy())
+    every = jax.jit(model.apply).lower(params, jnp.asarray(field)).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    strict = error(every(params, jnp.asarray(field)))
+    default = error(jax.jit(model.apply)(params, jnp.asarray(field)))
+    print(f"bf16 error against f64: port {port:.5f}, JAX every rounding {strict:.5f}, "
+          f"JAX default {default:.5f}")
+    assert port <= 1.05 * strict, (port, strict, default)
 
 
 def test_msgpack_reader_matches_flax():
