@@ -677,7 +677,8 @@ def finalize_position(state: dict, pipeline: dict, pipeline_name: str, output_pa
                 if gs_name in (pipeline.get("save") or []):
                     write_parquet(result, output_path=output_path, subpath=gs_name,
                                   filename=f"{pipeline_name}_{feed_name}")
-    logger.info("Timing summary %s: %s", pipeline_name, state["timer"].summary())
+    if "timer" in state:  # the per-position runner's; the mesh runner's states have spans
+        logger.info("Timing summary %s: %s", pipeline_name, state["timer"].summary())
     return profiles, post_results
 
 

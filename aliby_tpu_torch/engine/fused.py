@@ -40,6 +40,7 @@ from aliby_tpu_torch.extract.extract import (
     reduce_z_traced,
     tree_collect,
 )
+from aliby_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -147,8 +148,9 @@ def compile_fused_step(objects: Sequence[FusedObject], max_labels: int = 256,
             for (ch, red_z), si in slot_of.items():
                 imgs[si] = slot_img(ch, red_z)
             k = len(members)
-            labels_cat = torch.cat([all_labels[oi] for oi, _ in members])
-            imgs_cat = [torch.cat([im] * k) if k > 1 else im for im in imgs]
+            with span("features.concat", device=device):
+                labels_cat = torch.cat([all_labels[oi] for oi, _ in members])
+                imgs_cat = [torch.cat([im] * k) if k > 1 else im for im in imgs]
             names, arr = tree_collect(entries, labels_cat, imgs_cat, cap)
             for j, (oi, ti) in enumerate(members):
                 all_feats[oi][ti] = (names, arr[:, j * F:(j + 1) * F])
@@ -167,17 +169,20 @@ def compile_fused_step(objects: Sequence[FusedObject], max_labels: int = 256,
         with torch.no_grad():
             all_labels = segment(pixels)
             labels_pack = torch.stack(all_labels)
-            return (pixels, all_labels, labels_pack), int(labels_pack.max())
+            with span("step.sticky_wait"):
+                lmax = int(labels_pack.max())
+            return (pixels, all_labels, labels_pack), lmax
 
     def features_phase(seg, cap: int, u8: bool):
         """The step's second half at tree width ``cap``: a handle whose
         tensors :func:`collect` reads back."""
         pixels, all_labels, labels_pack = seg
-        with torch.no_grad():
+        with torch.no_grad(), span("step.enqueue"):
             feats = features(pixels, all_labels, cap)
             flat = [a for per_obj in feats for _, a in per_obj]
-            feats_pack = (torch.cat(flat) if flat
-                          else torch.zeros(0, pixels.shape[0], cap, device=device))
+            with span("features.concat", device=device):
+                feats_pack = (torch.cat(flat) if flat
+                              else torch.zeros(0, pixels.shape[0], cap, device=device))
             names = [[n for n, _ in per_obj] for per_obj in feats]
             return _pack_labels(labels_pack, u8), feats_pack, names
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from aliby_tpu_torch.extract import cellfuns, features, localisation, texture
+from aliby_tpu_torch.utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # Tree flattening (reference extract.py:33-74 semantics)
@@ -97,36 +98,47 @@ def _img2d(imgs, slot):
     return im.amax(dim=1) if im.dim() == 4 else im
 
 
-def _entry_values(entry, labels, imgs, max_labels) -> dict:
-    """Evaluate one plan entry over (F, H, W) labels -> {name: (F, L)}."""
+def _family(entry) -> str:
+    """A plan entry's family: the cp_measure family's name, ``coloc`` for a
+    colocalisation pair, else the entry's kind."""
     kind = entry[0]
-    if kind == "mask_family":
-        _, metric, kw_items = entry
-        return _cp_family_fn(metric)(labels, max_labels=max_labels, **dict(kw_items))
-    if kind == "image_family":
-        _, metric, kw_items, slot = entry
-        return _cp_family_fn(metric)(labels, _img2d(imgs, slot), max_labels=max_labels,
-                                     **dict(kw_items))
-    if kind == "corr":
-        _, metric, s0, s1 = entry
-        return features.CORRELATION_FEATURES[metric](labels, _img2d(imgs, s0),
-                                                     _img2d(imgs, s1), max_labels)
-    if kind == "mask_scalar":
-        return cellfuns.mask_metrics(labels, max_labels)
-    if kind == "pixel_scalar":
-        return cellfuns.pixel_metrics(labels, _img2d(imgs, entry[1]), max_labels)
-    if kind == "localisation":
-        _, metric, slot = entry
-        return {metric: localisation.compute(metric, labels, imgs[slot], max_labels)}
-    if kind == "trap":
-        raw = cellfuns.background_metrics(labels, _img2d(imgs, entry[1]))
-        return {k: v.unsqueeze(1).expand(v.shape[0], max_labels) for k, v in raw.items()}
-    if kind == "comb_scalar":
-        _, op, s0, s1 = entry
-        a, b = _img2d(imgs, s0), _img2d(imgs, s1)
-        combined = torch.nan_to_num(a / b if op == "div" else a + b)
-        return cellfuns.pixel_metrics(labels, combined, max_labels)
-    raise AssertionError(kind)
+    if kind in ("mask_family", "image_family"):
+        return entry[1]
+    return "coloc" if kind == "corr" else kind
+
+
+def _entry_values(entry, labels, imgs, max_labels) -> dict:
+    """Evaluate one plan entry over (F, H, W) labels -> {name: (F, L)}, in
+    the span ``features.<family>``."""
+    with span("features." + _family(entry), device=labels.device):
+        kind = entry[0]
+        if kind == "mask_family":
+            _, metric, kw_items = entry
+            return _cp_family_fn(metric)(labels, max_labels=max_labels, **dict(kw_items))
+        if kind == "image_family":
+            _, metric, kw_items, slot = entry
+            return _cp_family_fn(metric)(labels, _img2d(imgs, slot), max_labels=max_labels,
+                                         **dict(kw_items))
+        if kind == "corr":
+            _, metric, s0, s1 = entry
+            return features.CORRELATION_FEATURES[metric](labels, _img2d(imgs, s0),
+                                                         _img2d(imgs, s1), max_labels)
+        if kind == "mask_scalar":
+            return cellfuns.mask_metrics(labels, max_labels)
+        if kind == "pixel_scalar":
+            return cellfuns.pixel_metrics(labels, _img2d(imgs, entry[1]), max_labels)
+        if kind == "localisation":
+            _, metric, slot = entry
+            return {metric: localisation.compute(metric, labels, imgs[slot], max_labels)}
+        if kind == "trap":
+            raw = cellfuns.background_metrics(labels, _img2d(imgs, entry[1]))
+            return {k: v.unsqueeze(1).expand(v.shape[0], max_labels) for k, v in raw.items()}
+        if kind == "comb_scalar":
+            _, op, s0, s1 = entry
+            a, b = _img2d(imgs, s0), _img2d(imgs, s1)
+            combined = torch.nan_to_num(a / b if op == "div" else a + b)
+            return cellfuns.pixel_metrics(labels, combined, max_labels)
+        raise AssertionError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +231,13 @@ def tree_collect(plan_sig, labels: torch.Tensor, imgs, max_labels: int):
             if e[0] == "image_family" and e[1] == "radial_zernikes"]
     handled: set = set()
     if len(zmask) + len(zimg) >= 2:
-        if zimg:
-            ims = torch.stack([_img2d(imgs, s) for _, s in zimg], dim=1)  # (F, C', H, W)
-        else:
-            ims = torch.zeros((labels.shape[0], 0) + labels.shape[1:], device=labels.device)
-        mask_out, img_outs = texture.zernike_family_multi(labels, ims, bool(zmask), max_labels)
+        with span("features.zernike", device=labels.device):
+            if zimg:
+                ims = torch.stack([_img2d(imgs, s) for _, s in zimg], dim=1)  # (F, C', H, W)
+            else:
+                ims = torch.zeros((labels.shape[0], 0) + labels.shape[1:], device=labels.device)
+            mask_out, img_outs = texture.zernike_family_multi(labels, ims, bool(zmask),
+                                                              max_labels)
         for i in zmask:
             outputs.update({f"{i}::Zernike_{n}_{m}": v for (n, m), v in mask_out.items()})
             handled.add(i)
@@ -240,7 +254,8 @@ def tree_collect(plan_sig, labels: torch.Tensor, imgs, max_labels: int):
         # an empty tree is legal (a pair-less coloc tree for single-channel
         # extraction): a 0-row feature block
         return [], torch.zeros((0, labels.shape[0], max_labels), device=labels.device)
-    return names, torch.stack([outputs[n] for n in names])
+    with span("features.concat", device=labels.device):
+        return names, torch.stack([outputs[n] for n in names])
 
 
 class FusedTreeResult:

@@ -46,22 +46,25 @@ from aliby_tpu_torch.io.lazy import (
     lazy_moveaxis,
     lazy_squeeze,
 )
+from aliby_tpu_torch.utils.profiling import span
 
 DEFAULT_DIMORDER = "TCZYX"
 
 
 def _read_image_file(path: str | Path) -> np.ndarray:
     """Read one image file into numpy; native TIFF decoder first, imageio
-    for everything else (and the TIFF variants the decoder does not read)."""
-    if ".tif" in Path(path).suffix:
-        from aliby_tpu_torch import native
+    for everything else (and the TIFF variants the decoder does not read).
+    A span ``io.decode`` a file read."""
+    with span("io.decode"):
+        if ".tif" in Path(path).suffix:
+            from aliby_tpu_torch import native
 
-        arr = native.tiff_decode(path)
-        if arr is not None:
-            return arr
-    import imageio.v3 as iio
+            arr = native.tiff_decode(path)
+            if arr is not None:
+                return arr
+        import imageio.v3 as iio
 
-    return np.asarray(iio.imread(str(path)))
+        return np.asarray(iio.imread(str(path)))
 
 
 def _read_multipage(path: str | Path) -> np.ndarray:

@@ -26,6 +26,7 @@ from aliby_tpu_torch.extract.reductions import binned_sum_cols
 from aliby_tpu_torch.ops.imageops import _sqrt
 from aliby_tpu_torch.ops.labels import relabel_dense
 from aliby_tpu_torch.ops.stencil import OFFSETS, diffuse_heat, shift, successor_prop
+from aliby_tpu_torch.utils.profiling import span
 
 BIG_I32 = 2**30
 I32_MAX = 2**31 - 1
@@ -397,32 +398,34 @@ def masks_from_flows(flows: torch.Tensor, cellprob: torch.Tensor,
     the predicted ones by mean squared error > ``flow_threshold``) ->
     min-size and >40%-of-image drops -> compaction -> hole filling."""
     B, _, H, W = flows.shape
-    fg = cellprob > cellprob_threshold
-    final = follow_flows(flows, fg, n_iter=n_iter)
-    labels = masks_from_sinks(final, fg, max_labels=max_labels, drop_megamasks=False)
-    l_idx = (labels - 1).clamp(0, max_labels - 1).to(torch.int64).reshape(B, -1)
-    lab_px = torch.where(labels > 0, labels, 0).reshape(B, -1)
-    bins = lab_px.clamp(0, max_labels)
-    inside = (lab_px > 0).to(torch.float32)
-    if flow_threshold is not None:
-        mask_flows = masks_to_flows(labels, max_labels=max_labels)
-        d = mask_flows - flows
-        err_px = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]).reshape(B, -1)
-        zero = torch.zeros((), device=flows.device)
-        cols = torch.stack([torch.where(lab_px > 0, err_px, zero), inside], dim=-1)
-        acc = binned_sum_cols(cols, bins, max_labels + 1)
-        sums, cnts = acc[:, 1:, 0], acc[:, 1:, 1]
-        err = _div(sums, torch.clamp_min(cnts, 1.0))
-        drop = (err > flow_threshold) | (cnts < min_size)
-    else:
-        cnts = binned_sum_cols(inside[..., None], bins, max_labels + 1)[:, 1:, 0]
-        drop = cnts < min_size
-    drop = drop | (cnts > 0.4 * H * W)
-    present = (cnts >= 1.0) & ~drop
-    seq = torch.cumsum(present.to(torch.int32), dim=1, dtype=torch.int32)
-    table = torch.where(present, seq, 0).to(torch.int32)
-    labels = torch.where(labels.reshape(B, -1) > 0, torch.gather(table, 1, l_idx), 0)
-    labels = labels.reshape(B, H, W).to(torch.int32)
-    if fill_holes:
-        labels = fill_label_holes(labels)
-    return labels
+    with span("seg.dynamics", device=flows.device):
+        fg = cellprob > cellprob_threshold
+        final = follow_flows(flows, fg, n_iter=n_iter)
+        labels = masks_from_sinks(final, fg, max_labels=max_labels, drop_megamasks=False)
+    with span("seg.qc", device=flows.device):
+        l_idx = (labels - 1).clamp(0, max_labels - 1).to(torch.int64).reshape(B, -1)
+        lab_px = torch.where(labels > 0, labels, 0).reshape(B, -1)
+        bins = lab_px.clamp(0, max_labels)
+        inside = (lab_px > 0).to(torch.float32)
+        if flow_threshold is not None:
+            mask_flows = masks_to_flows(labels, max_labels=max_labels)
+            d = mask_flows - flows
+            err_px = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]).reshape(B, -1)
+            zero = torch.zeros((), device=flows.device)
+            cols = torch.stack([torch.where(lab_px > 0, err_px, zero), inside], dim=-1)
+            acc = binned_sum_cols(cols, bins, max_labels + 1)
+            sums, cnts = acc[:, 1:, 0], acc[:, 1:, 1]
+            err = _div(sums, torch.clamp_min(cnts, 1.0))
+            drop = (err > flow_threshold) | (cnts < min_size)
+        else:
+            cnts = binned_sum_cols(inside[..., None], bins, max_labels + 1)[:, 1:, 0]
+            drop = cnts < min_size
+        drop = drop | (cnts > 0.4 * H * W)
+        present = (cnts >= 1.0) & ~drop
+        seq = torch.cumsum(present.to(torch.int32), dim=1, dtype=torch.int32)
+        table = torch.where(present, seq, 0).to(torch.int32)
+        labels = torch.where(labels.reshape(B, -1) > 0, torch.gather(table, 1, l_idx), 0)
+        labels = labels.reshape(B, H, W).to(torch.int32)
+        if fill_holes:
+            labels = fill_label_holes(labels)
+        return labels

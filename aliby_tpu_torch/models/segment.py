@@ -52,6 +52,7 @@ from aliby_tpu_torch.ops.labels import (
     segment_sum,
 )
 from aliby_tpu_torch.track.trackers import stitch_sequence
+from aliby_tpu_torch.utils.profiling import span
 
 
 UNET_BATCH_PIXELS = 1 << 20  # pixels in one U-Net forward (the micro-batch)
@@ -133,11 +134,12 @@ def _normalize_percentile(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> each (image, channel) plane mapped by its exact 1st
     and 99th percentiles: (x - lo) / max(hi - lo, 1e-6)."""
     B, H, W, C = x.shape
-    rows = x.permute(0, 3, 1, 2).reshape(B * C, H * W)
-    lo, hi = percentile_pair(rows, 1.0, 99.0)
-    lo = lo.reshape(B, 1, 1, C)
-    hi = hi.reshape(B, 1, 1, C)
-    return _div(x - lo, torch.clamp_min(hi - lo, 1e-6))
+    with span("seg.normalize", device=x.device):
+        rows = x.permute(0, 3, 1, 2).reshape(B * C, H * W)
+        lo, hi = percentile_pair(rows, 1.0, 99.0)
+        lo = lo.reshape(B, 1, 1, C)
+        hi = hi.reshape(B, 1, 1, C)
+        return _div(x - lo, torch.clamp_min(hi - lo, 1e-6))
 
 
 def _pad_to_multiple(img: np.ndarray, m: int = 8):
@@ -214,13 +216,14 @@ class CellposeTorch:
         B, H, W, _ = x.shape
         m = max(1, min(16, UNET_BATCH_PIXELS // (H * W)))
         pad = (-B) % m
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-        outs = []
-        for i in range(0, B + pad, m):
-            out = self.model(x[i:i + m])
-            outs.append(out[0] if isinstance(out, tuple) else out)  # CPnet: (out, style)
-        return torch.cat(outs)[:B]
+        with span("seg.network", device=x.device):
+            if pad:
+                x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            outs = []
+            for i in range(0, B + pad, m):
+                out = self.model(x[i:i + m])
+                outs.append(out[0] if isinstance(out, tuple) else out)  # CPnet: (out, style)
+            return torch.cat(outs)[:B]
 
     @torch.no_grad()
     def _segment_all(self, images: torch.Tensor) -> torch.Tensor:

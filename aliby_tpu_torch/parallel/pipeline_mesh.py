@@ -27,13 +27,18 @@ bookkeeping, so states, saves and profiles are those of the per-position
 runner. Positions must share the fused-eligible pipeline shape (the same
 tile count in every position); an ineligible pipeline falls back to
 ``run_positions`` over the mesh's dp devices.
+
+The dispatch thread's phases are spans (``utils/profiling.span``):
+``runner.setup``, ``runner.io_wait``, ``runner.stack``,
+``runner.dispatch``, ``runner.collect``, ``runner.bookkeep`` and
+``runner.finalize``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
@@ -46,11 +51,18 @@ from aliby_tpu_torch.engine.compiled import try_compile_sharded
 from aliby_tpu_torch.engine.core import finalize_position, validate_pipeline
 from aliby_tpu_torch.parallel.mesh import Mesh, even_split, make_mesh
 from aliby_tpu_torch.parallel.positions import run_positions, stamp_image_kwargs
-from aliby_tpu_torch.utils.timer import StepTimer
+from aliby_tpu_torch.utils import profiling
+from aliby_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("aliby_tpu_torch")
 
-TIMING_KEYS = ("io_wait", "stack", "dispatch", "collect", "bookkeep", "finalize")
+# the ALIBY_MESH_TIMING split: each key's span, its host seconds on the
+# dispatch thread; ``dispatch`` less the sticky wait and the enqueue nested
+# in it, so that the keys sum to the time accounted
+TIMING_SPANS = {"io_wait": "runner.io_wait", "stack": "runner.stack",
+                "dispatch": "runner.dispatch", "sticky_wait": "step.sticky_wait",
+                "enqueue": "step.enqueue", "collect": "runner.collect",
+                "bookkeep": "runner.bookkeep", "finalize": "runner.finalize"}
 
 
 def plan_calls(n_pos: int, F: int, ntps: int, chunk: int | None, max_fields: int | None,
@@ -133,9 +145,10 @@ def run_positions_mesh_states(base_pipeline: dict, positions: Sequence[dict],
     timing)``, or ``None`` when the pipeline is not fused-eligible. Each
     entry holds a position's ``pos``, ``pipeline``, ``tiler`` and ``state``
     (not finalized: no parquet is written, so this needs no pyarrow).
-    ``timing`` is the dispatch thread's blocking time per phase when
-    ``ALIBY_MESH_TIMING`` is set, else None. With neither ``mesh`` nor
-    ``device`` it runs on ``cuda``; a mesh may repeat a card
+    ``timing`` is the dispatch thread's blocking time per phase
+    (:func:`_timing`) when ``ALIBY_MESH_TIMING`` is set, else None; the
+    span recorder (``utils/profiling``) is on for the call then. With
+    neither ``mesh`` nor ``device`` it runs on ``cuda``; a mesh may repeat a card
     (``make_mesh(devices=["cuda:0"] * 2)``: two shards on one card).
 
     ``chunk`` batches that many timepoints into each fused call (the
@@ -150,41 +163,55 @@ def run_positions_mesh_states(base_pipeline: dict, positions: Sequence[dict],
     if given, receives the run's ``state`` (that width after the run) and
     ``shard_launches`` (each shard's kernel launches by wrapper name).
     """
+    timed = bool(os.environ.get("ALIBY_MESH_TIMING"))
+    with profiling.recording() if timed else contextlib.nullcontext():
+        before = profiling.thread_host_s()
+        entries = _mesh_states(base_pipeline, positions, output_path, regex, capture_order,
+                               mesh, device, overwrite, chunk, report)
+    if entries is None:
+        return None
+    return entries, _timing(before) if timed else None
+
+
+def _timing(before: dict) -> dict:
+    """The ``ALIBY_MESH_TIMING`` split of the calling thread since
+    ``before`` (its ``profiling.thread_host_s()`` then)."""
+    now = profiling.thread_host_s()
+    timing = {k: now.get(name, 0.0) - before.get(name, 0.0) for k, name in TIMING_SPANS.items()}
+    timing["dispatch"] -= timing["sticky_wait"] + timing["enqueue"]
+    return timing
+
+
+def _mesh_states(base_pipeline, positions, output_path, regex, capture_order, mesh, device,
+                 overwrite, chunk, report):
+    """:func:`run_positions_mesh_states`' entries, or None."""
     from aliby_tpu_torch.pipe import init_step
 
     devices = _dp_devices(mesh, device)
     output_path = Path(output_path)
     entries = []
-    for pos in positions:
-        pipeline = stamp_image_kwargs(base_pipeline, pos, regex=regex, capture_order=capture_order)
-        validate_pipeline(pipeline)
-        if (output_path / "profiles" / f"{pos['key']}.parquet").exists() and not overwrite:
-            logger.info("Skipping %s", pos["key"])
-            continue
-        tiler = init_step("tile", pipeline["steps"]["tile"], {}, device=devices[0])
-        entries.append({"pos": pos, "pipeline": pipeline, "tiler": tiler})
-    timing = {k: 0.0 for k in TIMING_KEYS} if os.environ.get("ALIBY_MESH_TIMING") else None
-    if not entries:
-        return entries, timing
-    sharded_pair = try_compile_sharded(entries[0]["pipeline"], devices)
-    if sharded_pair is None:
-        return None
-    steps, sharded = sharded_pair
+    with span("runner.setup"):  # each position's pipeline and tiler (its image opened)
+        for pos in positions:
+            pipeline = stamp_image_kwargs(base_pipeline, pos, regex=regex,
+                                          capture_order=capture_order)
+            validate_pipeline(pipeline)
+            if (output_path / "profiles" / f"{pos['key']}.parquet").exists() and not overwrite:
+                logger.info("Skipping %s", pos["key"])
+                continue
+            tiler = init_step("tile", pipeline["steps"]["tile"], {}, device=devices[0])
+            entries.append({"pos": pos, "pipeline": pipeline, "tiler": tiler})
+        if not entries:
+            return entries
+        sharded_pair = try_compile_sharded(entries[0]["pipeline"], devices)
+        if sharded_pair is None:
+            return None
+        steps, sharded = sharded_pair
+        for e in entries:
+            e["state"] = {"tps": {n: 0 for n in e["pipeline"]["steps"]}, "data": {},
+                          "fn": {"tile": e["tiler"]}}
     compiled = steps[0]
-    for e in entries:
-        e["state"] = {"tps": {n: 0 for n in e["pipeline"]["steps"]}, "data": {},
-                      "fn": {"tile": e["tiler"]}, "timer": StepTimer()}
     ntps = base_pipeline.get("ntps", 1)
     dp = len(devices)
-
-    def _timed(key, fn, *a, **kw):
-        if timing is None:
-            return fn(*a, **kw)
-        t0 = time.perf_counter()
-        try:
-            return fn(*a, **kw)
-        finally:
-            timing[key] += time.perf_counter() - t0
 
     def done(value) -> Future:
         f = Future()
@@ -261,22 +288,24 @@ def run_positions_mesh_states(base_pipeline: dict, positions: Sequence[dict],
             per_tp_tiles, per_tp_blocks = [], []
             for tp in ch:
                 if tp not in fetched:
-                    fetched[tp] = _timed("io_wait", fetch_tp, io_futs.pop(tp))
+                    with span("runner.io_wait"):
+                        fetched[tp] = fetch_tp(io_futs.pop(tp))
                 tr, blks, f_tp = fetched.pop(tp)
                 if f_tp != F:
                     raise ValueError(f"tile count changed across tps: {f_tp} != {F}")
                 per_tp_tiles.append(tr)
                 per_tp_blocks.append(blks)
             # a shard's block: its positions' tiles, (tp, position, tile)-major
-            blocks = _timed("stack", lambda: [
-                np.concatenate([blks[g] for blks in per_tp_blocks for g in members])
-                for _, members in parts])
+            with span("runner.stack"):
+                blocks = [np.concatenate([blks[g] for blks in per_tp_blocks for g in members])
+                          for _, members in parts]
             # each shard copies its block to its device on its own stream and
             # reads its label count back after segmentation (the shared
             # sticky width), then queues its trees; this chunk's tracking is
             # queued behind them, and the previous chunk's readback and
             # bookkeeping run while the devices work
-            handles = _timed("dispatch", sharded.dispatch, blocks, shards=shards)
+            with span("runner.dispatch"):
+                handles = sharded.dispatch(blocks, shards=shards)
             tracked = None
             if scan_tracker:
                 # the previous chunk is not ingested yet: its tracker state
@@ -294,18 +323,23 @@ def run_positions_mesh_states(base_pipeline: dict, positions: Sequence[dict],
                     io_futs[tp] = submit_io(tp)
             if pending is not None:
                 p_ch, p_tiles, p_handles, p_tracked = pending
-                outs, overrides = _timed("collect", readback, p_ch, p_handles, p_tracked)
-                _timed("bookkeep", bookkeep_chunk, p_ch, p_tiles, outs, overrides)
+                with span("runner.collect"):
+                    outs, overrides = readback(p_ch, p_handles, p_tracked)
+                with span("runner.bookkeep"):
+                    bookkeep_chunk(p_ch, p_tiles, outs, overrides)
             pending = (ch, per_tp_tiles, handles, tracked)
         p_ch, p_tiles, p_handles, p_tracked = pending
-        outs, overrides = _timed("collect", readback, p_ch, p_handles, p_tracked)
-        _timed("bookkeep", bookkeep_chunk, p_ch, p_tiles, outs, overrides)
+        with span("runner.collect"):
+            outs, overrides = readback(p_ch, p_handles, p_tracked)
+        with span("runner.bookkeep"):
+            bookkeep_chunk(p_ch, p_tiles, outs, overrides)
 
     pool = ThreadPoolExecutor(max_workers=min(8, max(2, len(entries))))
     try:
         # the first position's first fetch gives the tiles a timepoint and
         # their size, which the plan of calls needs
-        first = _timed("io_wait", entries[0]["tiler"].run_tp, 0)
+        with span("runner.io_wait"):
+            first = entries[0]["tiler"].run_tp(0)
         shape = np.shape(first["pixels"])
         F, field_pixels = shape[-5], shape[-2] * shape[-1]
         G, C = plan_calls(len(entries), F, ntps, chunk, _shard_max_fields(steps, field_pixels),
@@ -320,7 +354,7 @@ def run_positions_mesh_states(base_pipeline: dict, positions: Sequence[dict],
         sharded.close()
     if report is not None:
         report.update(state=dict(sharded.state), shard_launches=sharded.shard_launches)
-    return entries, timing
+    return entries
 
 
 def run_positions_mesh(base_pipeline: dict, positions: Sequence[dict], output_path: str | Path,
@@ -332,29 +366,34 @@ def run_positions_mesh(base_pipeline: dict, positions: Sequence[dict], output_pa
     every visible card; ``device=`` runs on that device alone)
     (:func:`run_positions_mesh_states`), then finalize each: profiles
     parquet, global steps. Returns {position_key: (profiles, post_results)}
-    like ``run_positions``."""
+    like ``run_positions``. With ``ALIBY_MESH_TIMING`` set the span
+    recorder is on for the call, finalize included, and the split is logged
+    as a ``mesh timing`` warning."""
     from aliby_tpu_torch.pipe import init_step
 
     if mesh is None and device is None:
         mesh = make_mesh()
     devices = _dp_devices(mesh, device)
-    ran = run_positions_mesh_states(base_pipeline, positions, output_path, regex=regex,
-                                    capture_order=capture_order, mesh=mesh, device=device,
-                                    overwrite=overwrite, chunk=chunk)
-    if ran is None:
-        logger.warning("pipeline not fused-eligible; falling back to threaded positions")
-        return run_positions(base_pipeline, positions, output_path, regex=regex,
-                             capture_order=capture_order, overwrite=overwrite, devices=devices)
-    entries, timing = ran
-    t_fin = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=min(8, max(2, len(entries)))) as pool:
-        finalized = list(pool.map(
-            lambda e: finalize_position(e["state"], e["pipeline"], e["pos"]["key"], output_path,
-                                        init_step, post_state_hook=None, device=devices[0]),
-            entries))
+    timed = bool(os.environ.get("ALIBY_MESH_TIMING"))
+    with profiling.recording() if timed else contextlib.nullcontext():
+        before = profiling.thread_host_s()
+        entries = _mesh_states(base_pipeline, positions, output_path, regex, capture_order,
+                               mesh, device, overwrite, chunk, None)
+        if entries is None:
+            logger.warning("pipeline not fused-eligible; falling back to threaded positions")
+            return run_positions(base_pipeline, positions, output_path, regex=regex,
+                                 capture_order=capture_order, overwrite=overwrite,
+                                 devices=devices)
+        with span("runner.finalize"), \
+                ThreadPoolExecutor(max_workers=min(8, max(2, len(entries)))) as pool:
+            finalized = list(pool.map(
+                lambda e: finalize_position(e["state"], e["pipeline"], e["pos"]["key"],
+                                            output_path, init_step, post_state_hook=None,
+                                            device=devices[0]),
+                entries))
     results = {e["pos"]["key"]: prof for e, prof in zip(entries, finalized)}
-    if timing is not None:
-        timing["finalize"] = time.perf_counter() - t_fin
+    if timed:
+        timing = _timing(before)
         logger.warning("mesh timing (dispatch-thread blocking, %d tps x %d pos): %s; "
                        "accounted %.3fs", base_pipeline.get("ntps", 1), len(entries),
                        " ".join(f"{k}={v:.3f}s" for k, v in timing.items()),

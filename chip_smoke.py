@@ -192,7 +192,7 @@ Phases, in order; any failure exits non-zero:
    ``torch.cuda.set_sync_debug_mode("error")``. (f) ms a step (CUDA events)
    in bf16 and f32, split into forward-backward and optimizer, ms of the
    targets on the card, host render ms a batch, the device idle share of 3
-   steps, and a ``utils.profiling.trace`` of 2 steps whose ``annotate``
+   steps, and a ``utils.profiling.trace`` of 2 steps whose ``span``
    names are found in the profile.
 9. example 01 from a TIFF plate (slice 8): (a) g++ builds the port's native
    TIFF decoder (``aliby_tpu_torch.native.build``, its own copy of the
@@ -3096,17 +3096,17 @@ def training_phase(dev) -> tuple[dict, dict]:
     names = ("train_targets", "train_step")
     with profiling.trace(os.path.join(tmp.name, "trace")) as prof:
         for _ in range(2):
-            with profiling.annotate(names[0]):
+            with profiling.span(names[0]):
                 b = T.synthetic_batch(rng, TRAIN_BATCH, TRAIN_SIZE, device=dev)
-            with profiling.annotate(names[1]):
+            with profiling.span(names[1]):
                 main_step(b)
         sync()
     found = {e.key for e in prof.key_averages()}
     trace_bytes = os.path.getsize(os.path.join(tmp.name, "trace", "trace.json"))
     if not set(names) <= found:
-        raise AssertionError(f"(f) the annotate names {names} are not in the profile")
+        raise AssertionError(f"(f) the span names {names} are not in the profile")
     log(f"[train] (f) profiling.trace of 2 steps: {trace_bytes} bytes of Chrome trace, the "
-        f"annotate names {names} found")
+        f"span names {names} found")
     tmp.cleanup()
     return out, rows
 

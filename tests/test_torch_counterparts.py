@@ -213,7 +213,8 @@ def test_get_data_root(tmp_path, monkeypatch):
 # modules of the port under other names
 MODULES = {"ops/pallas_segsum.py": "ops/segsum.py", "ops/pallas_stencil.py": "ops/stencil.py"}
 # names of the port under other names
-RENAMED = {("models/segment.py", "CellposeTPU"): "CellposeTorch"}
+RENAMED = {("models/segment.py", "CellposeTPU"): "CellposeTorch",
+           ("utils/profiling.py", "annotate"): "span"}
 # names with no counterpart, and why
 NOT_PORTED = {
     **{f"models/cpnet.py:{n}": "Flax modules of CPnetFlax: the port's CPnet is torch and loads "
