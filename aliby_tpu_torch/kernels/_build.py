@@ -53,6 +53,9 @@ PROTOTYPES = {
         "binned_minmax": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _L, _P),
         "table_lookup": (_P, _P, _P, _I, _L, _I, _I, _I, _P),
     },
+    "holes": {
+        "fill_label_holes": (_P, _P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

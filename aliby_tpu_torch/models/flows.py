@@ -6,16 +6,18 @@ image axis B where the reference is vmapped.
   flows = the unit gradient of log1p(heat) (the QC recomputation).
 - :func:`follow_flows`: 2 Euler steps by stencil selects, then successor-map
   key propagation with the canonical-cycle key init.
-- :func:`masks_from_sinks`, :func:`fill_label_holes`, :func:`masks_from_flows`:
-  histogram seeds, corridor expansion, flow-error QC, compaction and hole
-  filling, in the reference's stage order.
+- :func:`masks_from_sinks`, :func:`masks_from_flows`: histogram seeds,
+  corridor expansion, flow-error QC, compaction and hole filling
+  (:func:`aliby_tpu_torch.ops.labels.fill_label_holes`), in the reference's
+  stage order.
 
-The two long stencil loops run through :mod:`aliby_tpu_torch.ops.stencil`
-and the QC sums through :func:`aliby_tpu_torch.extract.reductions.binned_sum_cols`;
-each is a CUDA kernel on the GPU. Float operations keep the reference's
-order, and every division is a true division (never a multiply by a
-reciprocal), so the CPU path reproduces the JAX package bit for bit where
-the JAX package is exact.
+The two long stencil loops run through :mod:`aliby_tpu_torch.ops.stencil`,
+the QC sums through :func:`aliby_tpu_torch.extract.reductions.binned_sum_cols`
+and the hole filling through :mod:`aliby_tpu_torch.ops.labels`; each is a
+CUDA kernel on the GPU. Float operations keep the reference's order, and
+every division is a true division (never a multiply by a reciprocal), so
+the CPU path reproduces the JAX package bit for bit where the JAX package
+is exact.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from aliby_tpu_torch.extract.reductions import binned_sum_cols
 from aliby_tpu_torch.ops.imageops import _sqrt
-from aliby_tpu_torch.ops.labels import relabel_dense
+from aliby_tpu_torch.ops.labels import fill_label_holes, relabel_dense
 from aliby_tpu_torch.ops.stencil import OFFSETS, diffuse_heat, shift, successor_prop
 from aliby_tpu_torch.utils.profiling import span
 
@@ -328,64 +330,6 @@ def masks_from_sinks(final_pos: torch.Tensor, fg: torch.Tensor, max_labels: int 
     return raw.reshape(B, H, W).to(torch.int32)
 
 
-def fill_label_holes(labels: torch.Tensor) -> torch.Tensor:
-    """Fill enclosed background holes per mask: a 4-connected background
-    component that does not touch the border and borders exactly one label
-    takes that label. (B, H, W) int32 -> (B, H, W) int32.
-
-    Component-wide (min, max) adjacent labels propagate by 4-neighbour
-    stencil rounds over the non-border-visible background until stable;
-    the host checks for convergence every 8 rounds."""
-    B, H, W = labels.shape
-    dev = labels.device
-    bg = labels == 0
-    blocked = (~bg).to(torch.int32)
-    vis = (
-        (torch.cumsum(blocked, dim=1) == 0)
-        | (torch.cumsum(blocked.flip(1), dim=1).flip(1) == 0)
-        | (torch.cumsum(blocked, dim=2) == 0)
-        | (torch.cumsum(blocked.flip(2), dim=2).flip(2) == 0)
-    ) & bg
-    rest = bg & ~vis
-    big = torch.full((), BIG_I32, dtype=torch.int32, device=dev)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    pmin = torch.full((B, H, W), BIG_I32, dtype=torch.int32, device=dev)
-    pmax = torch.zeros((B, H, W), dtype=torch.int32, device=dev)
-    four = ((-1, 0), (1, 0), (0, -1), (0, 1))
-    for dy, dx in four:
-        nb = shift(labels, dy, dx, 0)
-        nvis = shift(vis, dy, dx, False)
-        pmin = torch.minimum(pmin, torch.where(nb > 0, nb, big))
-        pmax = torch.maximum(pmax, torch.where(nvis, big, nb))
-    border = torch.zeros((H, W), dtype=torch.bool, device=dev)
-    border[0, :] = True
-    border[-1, :] = True
-    border[:, 0] = True
-    border[:, -1] = True
-    pmax = torch.where(border, big, pmax)
-    pmin = torch.where(rest, pmin, big)
-    pmax = torch.where(rest, pmax, zero)
-    nrest = [shift(rest, dy, dx, False) for dy, dx in four]
-
-    def one_round(pmin, pmax):
-        nmin, nmax = pmin, pmax
-        for (dy, dx), nr in zip(four, nrest):
-            nmin = torch.minimum(nmin, torch.where(nr, shift(pmin, dy, dx, BIG_I32), big))
-            nmax = torch.maximum(nmax, torch.where(nr, shift(pmax, dy, dx, 0), zero))
-        return torch.where(rest, nmin, big), torch.where(rest, nmax, zero)
-
-    for _ in range(H * W):
-        nmin, nmax = pmin, pmax
-        for _ in range(8):
-            nmin, nmax = one_round(nmin, nmax)
-        changed = bool(((nmin != pmin) | (nmax != pmax)).any())
-        pmin, pmax = nmin, nmax
-        if not changed:
-            break
-    fillable = rest & (pmin == pmax) & (pmin > 0) & (pmax < BIG_I32)
-    return torch.where(fillable, pmin, labels)
-
-
 def masks_from_flows(flows: torch.Tensor, cellprob: torch.Tensor,
                      cellprob_threshold: float = 0.0, n_iter: int = 2,
                      max_labels: int = 256, min_size: int = 15,
@@ -427,5 +371,6 @@ def masks_from_flows(flows: torch.Tensor, cellprob: torch.Tensor,
         labels = torch.where(labels.reshape(B, -1) > 0, torch.gather(table, 1, l_idx), 0)
         labels = labels.reshape(B, H, W).to(torch.int32)
         if fill_holes:
-            labels = fill_label_holes(labels)
+            with span("seg.fill", device=labels.device):
+                labels = fill_label_holes(labels)
         return labels

@@ -5,8 +5,10 @@ fixed iterations, the same ids) and :func:`connected_components_hybrid`
 (local rounds, then hook rounds until stable; no caller on a path, as in
 the reference), :func:`relabel_dense` (segmentation),
 :func:`relabel_sequential` and its batched form (tracking),
-:func:`label_onehot`, :func:`segment_sum`, :func:`num_labels` and
-:func:`to_uint16_labels`.
+:func:`label_onehot`, :func:`segment_sum`, :func:`num_labels`,
+:func:`to_uint16_labels`, and :func:`fill_label_holes` (segmentation's last
+stage: the plain version for CPU tensors, ``kernels/csrc/holes.cu`` for
+CUDA tensors, no fallback between the two).
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from aliby_tpu_torch.kernels import _build
+from aliby_tpu_torch.ops.stencil import shift
+
 _BIG = 2**30  # the reference's sentinel: labels lie below it
+FILL_LAUNCHES = 5  # fill_label_holes on the card: bounds, init, link, fold, write
 
 
 def _neighbor_min(lbl: torch.Tensor, connectivity: int) -> torch.Tensor:
@@ -132,6 +138,107 @@ def relabel_dense(labels: torch.Tensor, upper: int, max_labels: int) -> torch.Te
     new = torch.gather(seq, 1, idx)
     new = torch.where((flat > 0) & (new <= max_labels), new, 0)
     return new.reshape(labels.shape).to(torch.int32)
+
+
+def fill_label_holes_plain(labels: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fill_label_holes` (the JAX package's
+    stencil loop): component-wide (min, max) adjacent labels propagate by
+    4-neighbour stencil rounds over the non-border-visible background
+    until stable; the host checks for convergence every 8 rounds."""
+    B, H, W = labels.shape
+    dev = labels.device
+    bg = labels == 0
+    blocked = (~bg).to(torch.int32)
+    vis = (
+        (torch.cumsum(blocked, dim=1) == 0)
+        | (torch.cumsum(blocked.flip(1), dim=1).flip(1) == 0)
+        | (torch.cumsum(blocked, dim=2) == 0)
+        | (torch.cumsum(blocked.flip(2), dim=2).flip(2) == 0)
+    ) & bg
+    rest = bg & ~vis
+    big = torch.full((), _BIG, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    pmin = torch.full((B, H, W), _BIG, dtype=torch.int32, device=dev)
+    pmax = torch.zeros((B, H, W), dtype=torch.int32, device=dev)
+    four = ((-1, 0), (1, 0), (0, -1), (0, 1))
+    for dy, dx in four:
+        nb = shift(labels, dy, dx, 0)
+        nvis = shift(vis, dy, dx, False)
+        pmin = torch.minimum(pmin, torch.where(nb > 0, nb, big))
+        pmax = torch.maximum(pmax, torch.where(nvis, big, nb))
+    border = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    border[0, :] = True
+    border[-1, :] = True
+    border[:, 0] = True
+    border[:, -1] = True
+    pmax = torch.where(border, big, pmax)
+    pmin = torch.where(rest, pmin, big)
+    pmax = torch.where(rest, pmax, zero)
+    nrest = [shift(rest, dy, dx, False) for dy, dx in four]
+
+    def one_round(pmin, pmax):
+        nmin, nmax = pmin, pmax
+        for (dy, dx), nr in zip(four, nrest):
+            nmin = torch.minimum(nmin, torch.where(nr, shift(pmin, dy, dx, _BIG), big))
+            nmax = torch.maximum(nmax, torch.where(nr, shift(pmax, dy, dx, 0), zero))
+        return torch.where(rest, nmin, big), torch.where(rest, nmax, zero)
+
+    for _ in range(H * W):
+        nmin, nmax = pmin, pmax
+        for _ in range(8):
+            nmin, nmax = one_round(nmin, nmax)
+        changed = bool(((nmin != pmin) | (nmax != pmax)).any())
+        pmin, pmax = nmin, nmax
+        if not changed:
+            break
+    fillable = rest & (pmin == pmax) & (pmin > 0) & (pmax < _BIG)
+    return torch.where(fillable, pmin, labels)
+
+
+def fill_label_holes(labels: torch.Tensor) -> torch.Tensor:
+    """Fill enclosed background holes per mask: a 4-connected background
+    component that does not touch the border and borders exactly one label
+    takes that label. (B, H, W) int32 -> (B, H, W) int32.
+
+    A CPU tensor takes :func:`fill_label_holes_plain`. A CUDA tensor, which
+    must be contiguous, launches ``kernels/csrc/holes.cu``: union-find
+    labelling of the background that is not straight-line visible from the
+    border, in :data:`FILL_LAUNCHES` launches and no host synchronisation,
+    with the plain version's bits. It replaces no TPU kernel (the JAX
+    package loops over stencil rounds); it exists because that loop took
+    ~230 host-checked rounds of 26 launches a (18, 1080, 1080) call on the
+    card, most of the flow-error QC's time, where the kernel is bound by
+    the bytes of a few passes over the labels."""
+    if labels.device.type == "cpu":
+        return fill_label_holes_plain(labels)
+    if labels.device.type != "cuda":
+        raise ValueError(f"unsupported device {labels.device}")
+    if labels.dim() != 3:
+        raise ValueError(f"labels must be (B, H, W), got {tuple(labels.shape)}")
+    if labels.dtype != torch.int32:
+        raise TypeError(f"labels must be torch.int32, got {labels.dtype}")
+    if not labels.is_contiguous():
+        raise ValueError("labels must be contiguous")
+    B, H, W = labels.shape
+    if H * W >= 2**31 or B > 65535:
+        raise ValueError(f"the kernel takes H * W < 2^31 and B <= 65535, got {(B, H, W)}")
+    if labels.numel() == 0:
+        return labels.clone()
+    lib = _build.load("holes")
+    out = torch.empty_like(labels)
+    bounds = torch.empty(2 * B * (H + W), dtype=torch.int32, device=labels.device)
+    maps = torch.empty(3 * labels.numel(), dtype=torch.int32, device=labels.device)
+    with _build.on_device(labels):
+        _build.check(
+            lib.fill_label_holes(labels.data_ptr(), out.data_ptr(), bounds.data_ptr(),
+                                 maps.data_ptr(), B, H, W, _build.stream_of(labels)),
+            "fill_label_holes",
+        )
+    _build.count(fill_label_holes, FILL_LAUNCHES)
+    return out
+
+
+fill_label_holes.launches = 0
 
 
 def relabel_sequential_batched(labels: torch.Tensor, max_labels: int):

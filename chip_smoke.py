@@ -284,6 +284,8 @@ STENCIL_ITERS = (1, 8, 9, 10, 96)  # around the kernel's 9 rounds a launch
 BF16_COUNT_SHARE = 0.05  # bf16 vs f32 card labels: object counts within max(1, 5%)
 BF16_MIN_IOU = 0.90  # and worst matched IoU (both ways) at least this
 REPS = 21
+FILL_FIELDS = 9  # row 7: a benchmark call's fields, nuclei and cells of each (18 maps)
+FILL_CONFIG = "gpubench/configs/cellposenet-jump1080.json"  # whose field block draws them
 F32_EPS = 2.0 ** -23
 SLICE1_KERNELS = ("successor_prop", "diffuse_heat", "binned_sum_cols_batched")
 REPLACES = {
@@ -293,6 +295,8 @@ REPLACES = {
     "binned_minmax_batched": "aliby_tpu/ops/pallas_segsum.py:251",
     "table_lookup_batched": "aliby_tpu/ops/pallas_segsum.py:302",
     "segment_sum_matmul": "aliby_tpu/ops/pallas_segsum.py:64",
+    "fill_label_holes": "none (aliby_tpu/models/flows.py fill_label_holes: jnp stencil rounds in a "
+                        "lax.while_loop)",
     "binned_sum_cols_batched (stitch_pair intersection count)":
         "aliby_tpu/ops/pallas_segsum.py:234",
     "binned_sum_cols_batched (BABY virtual tiles)": "aliby_tpu/ops/pallas_segsum.py:234",
@@ -557,6 +561,91 @@ def stencil_checks(rng, dev, base, B, H, W) -> None:
         f"touching all four borders) and with sources of +inf (NaN positions equal)")
 
 
+def fill_checks(rng, dev) -> None:
+    """Phase 2, the hole fill: the kernel equal to its plain version on the
+    card, ``FILL_LAUNCHES`` launches a call, on random label fields at
+    ragged sizes, sparse (large background components) and dense (many
+    enclosed holes), holding values past 2^30 and below 0."""
+    from aliby_tpu_torch.ops import labels as label_ops
+
+    values = [-2, 1, 5, 256, 2**30, 2**30 + 3]
+    for share, shape in ((0.5, (3, 97, 130)), (0.8, (2, 300, 277))):
+        lab = (rng.random(shape) < share) * rng.choice(values, shape)
+        labels = torch.from_numpy(lab.astype(np.int32)).to(dev)
+        before = label_ops.fill_label_holes.launches
+        got = label_ops.fill_label_holes(labels)
+        n = label_ops.fill_label_holes.launches - before
+        want = label_ops.fill_label_holes_plain(labels)
+        sync()
+        if n != label_ops.FILL_LAUNCHES or not torch.equal(got, want):
+            raise AssertionError(f"fill_label_holes != plain on random fields {shape} at "
+                                 f"{share:.0%} foreground ({n} launches)")
+        log(f"[kernels] fill_label_holes equal to plain, {n} launches a call: random fields "
+            f"{shape} at {share:.0%} foreground, {int((got != labels).sum())} pixels filled")
+
+
+def plate_fill_input(dev) -> tuple:
+    """Phase 3: ``FILL_FIELDS`` of the benchmark's 1080x1080 fields
+    (``gpubench/plate.py``, drawn by ``FILL_CONFIG``'s field block)
+    segmented in one call as the pipelines segment them (nuclei on DNA,
+    cells on AGP, one batch): the input the main path gave the hole fill,
+    and the launches it made."""
+    from aliby_tpu_torch.models import flows
+    from aliby_tpu_torch.models.segment import dispatch_segmenter, segment_grouped
+    from aliby_tpu_torch.ops import labels as label_ops
+    from gpubench.plate import STAINS, render_field
+
+    with open(os.path.join(ROOT, FILL_CONFIG)) as f:
+        field = json.load(f)["field"]
+    pixels = np.stack([render_field(field["plate_seed"], i, field["size"], field)
+                       for i in range(FILL_FIELDS)])[:, :, None].astype(np.float32)
+    segs = [dispatch_segmenter("cellpose", STAINS.index("DNA")),
+            dispatch_segmenter("cellpose", STAINS.index("AGP"))]
+    before = label_ops.fill_label_holes.launches
+    with Recorder(flows, "fill_label_holes") as rec, FillCalls() as calls:
+        segment_grouped(segs, pixels)
+        sync()
+    n = label_ops.fill_label_holes.launches - before
+    want = (2 * FILL_FIELDS, field["size"], field["size"])
+    if calls.calls != 1 or n != label_ops.FILL_LAUNCHES or tuple(rec.args[0].shape) != want:
+        raise AssertionError(f"the plate batch's segmentation: {calls.calls} masks_from_flows "
+                             f"calls, {n} fill launches, fill input {tuple(rec.args[0].shape)}")
+    log(f"[slice] {FILL_FIELDS} benchmark fields of {field['size']}^2 x 2 objects (one call): "
+        f"fill_label_holes launched {n} times on {want}")
+    return rec.args[0], n
+
+
+def fill_row(labels, launches) -> dict:
+    """Row 7: ``fill_label_holes`` on the input one segmentation call of the
+    main path gave it (:func:`plate_fill_input`), beside its plain version;
+    bound: the labels read once and written once. Also the share of each
+    map's background that the fill labels (``rest``: not straight-line
+    visible from the border)."""
+    from aliby_tpu_torch.ops import labels as label_ops
+
+    B, H, W = labels.shape
+    bg = labels == 0
+    blocked = (~bg).to(torch.int32)
+    vis = ((blocked.cumsum(1) == 0) | (blocked.flip(1).cumsum(1).flip(1) == 0)
+           | (blocked.cumsum(2) == 0) | (blocked.flip(2).cumsum(2).flip(2) == 0))
+    rest = (bg & ~vis).reshape(B, -1).float().mean(1)
+    filled = (label_ops.fill_label_holes_plain(labels) != labels).reshape(B, -1).sum(1)
+    row = kernel_row("fill_label_holes", lambda: label_ops.fill_label_holes(labels),
+                     lambda: label_ops.fill_label_holes_plain(labels), None,
+                     bytes_=2 * 4 * B * H * W, ops=0, shape=(B, H, W), launches=launches)
+    half = B // 2  # nuclei, then cells
+    row.update(rest_share_nuclei=rest[:half].mean().item(),
+               rest_share_cells=rest[half:].mean().item(),
+               filled_px_nuclei=int(filled[:half].sum()), filled_px_cells=int(filled[half:].sum()),
+               note="replaces no TPU kernel")
+    stencil_costs(row, lambda: label_ops.fill_label_holes(labels), label_ops.fill_label_holes,
+                  label_ops.FILL_LAUNCHES)
+    log(f"[report] fill_label_holes: rest {row['rest_share_nuclei']:.4f} of a nucleus map, "
+        f"{row['rest_share_cells']:.4f} of a cell map; pixels filled: nuclei "
+        f"{row['filled_px_nuclei']}, cells {row['filled_px_cells']}")
+    return row
+
+
 def kernel_checks(rng, dev) -> None:
     """Phase 2: every kernel against its plain version on the card."""
     from aliby_tpu_torch.ops import segsum
@@ -709,6 +798,7 @@ def kernel_checks(rng, dev) -> None:
         f"err {rel:.3g}, max err / bound {ratio:.3g}; bit-equal to the CPU's grouping in the "
         f"kernel's order; a column's bits do not depend on its group; one shared non-finite flag")
     minmax_lookup_checks(rng, dev, base)
+    fill_checks(rng, dev)
 
 
 def minmax_values(rng, B, N, K):
@@ -876,7 +966,8 @@ def kernel_row(name, kernel, plain, library, bytes_, ops, shape, launches,
         raise AssertionError(f"{name} != plain on the main path's inputs {tuple(shape)}")
     t_bytes, t_ops = bytes_ / PEAK_BYTES_S * 1e3, ops / ops_rate * 1e3
     source = "aliby_tpu_torch/kernels/csrc/" + (
-        "stencil.cu" if name in ("successor_prop", "diffuse_heat") else "segsum.cu")
+        "stencil.cu" if name in ("successor_prop", "diffuse_heat") else
+        "holes.cu" if name == "fill_label_holes" else "segsum.cu")
     ms, plain_ms, *library_ms = cuda_ms_turns([kernel, plain] + [library] * (library is not None))
     r = {
         "name": name, "route": "cuda", "source": source, "replaces": REPLACES[name],
@@ -1334,13 +1425,14 @@ def compare_features(gpu_feats, cpu_feats, fields, what: str) -> None:
 
 def fused_checks(what: str, pixels, slice1_labels, reps: int, profile: bool):
     """Phase 3, slices 2 and 3: one pipeline of ``FUSED_PATHS`` through the
-    fused step, its five kernels counted over one step."""
+    fused step, its kernels (five and the hole fill) counted over one step."""
     from aliby_tpu_torch.engine.builders import build_pipeline_steps
     from aliby_tpu_torch.engine.compiled import try_compile
     from aliby_tpu_torch.engine.fused import results_from_fused
     from aliby_tpu_torch.extract import features, reductions
     from aliby_tpu_torch.models import flows
     from aliby_tpu_torch.models.segment import dispatch_segmenter
+    from aliby_tpu_torch.ops import labels as label_ops
     from aliby_tpu_torch.ops import segsum, stencil
 
     kwargs, rows, golden_file = FUSED_PATHS[what]
@@ -1348,7 +1440,8 @@ def fused_checks(what: str, pixels, slice1_labels, reps: int, profile: bool):
                 "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
                 "binned_minmax_batched": segsum.binned_minmax_batched,
                 "table_lookup_batched": segsum.table_lookup_batched,
-                "segment_sum_matmul": segsum.segment_sum_matmul}
+                "segment_sum_matmul": segsum.segment_sum_matmul,
+                "fill_label_holes": label_ops.fill_label_holes}
     # counted with the others, and held to 0: no production path calls it
     off_path = {"segment_sum_matmul"}
     step = try_compile(build_pipeline_steps(**kwargs))
@@ -1385,13 +1478,17 @@ def fused_checks(what: str, pixels, slice1_labels, reps: int, profile: bool):
                      lambda v, b, n: f"K {v.shape[-1]}, {n} bins"),
                Tally(reductions, "table_lookup_batched",
                      lambda t, b: f"K {t.shape[-1]}, L {t.shape[1]}, {b[0].numel()} px")]
+    fills = FillCalls()
     for w in wrappers.values():
         w.launches = 0
-    with recording([*recorders.values(), *tallies]):
+    with recording([*recorders.values(), *tallies, fills]):
         t0 = time.perf_counter()
         run1 = step.fused(pixels)
         t_run1 = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
+    if fills.calls < 1 or launches["fill_label_holes"] != label_ops.FILL_LAUNCHES * fills.calls:
+        raise AssertionError(f"the {what} step's {fills.calls} masks_from_flows calls launched "
+                             f"the hole fill {launches['fill_label_holes']} times")
     log(f"[fused] {what} step, 8 fields x 2 objects: first call {t_first * 1e3:.1f} ms, "
         f"counted run {t_run1 * 1e3:.1f} ms; launches {launches}")
     for t in tallies:
@@ -1591,13 +1688,30 @@ MAIN_KERNELS = ("successor_prop", "diffuse_heat", "binned_sum_cols_batched",
 
 
 def main_wrappers() -> dict:
-    """The wrappers of kernels 1-5 (the main path's), by name."""
+    """The wrappers of kernels 1-5 and the hole fill (the main path's), by
+    name."""
+    from aliby_tpu_torch.ops import labels as label_ops
     from aliby_tpu_torch.ops import segsum, stencil
 
     return {"successor_prop": stencil.successor_prop, "diffuse_heat": stencil.diffuse_heat,
             "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
             "binned_minmax_batched": segsum.binned_minmax_batched,
-            "table_lookup_batched": segsum.table_lookup_batched}
+            "table_lookup_batched": segsum.table_lookup_batched,
+            "fill_label_holes": label_ops.fill_label_holes}
+
+
+class FillCalls(Recorder):
+    """Counts the calls of ``segment.masks_from_flows`` that fill holes."""
+
+    def __init__(self):
+        from aliby_tpu_torch.models import segment
+
+        super().__init__(segment, "masks_from_flows")
+        self.calls = 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += bool(kwargs.get("fill_holes", True))
+        return super().__call__(*args, **kwargs)
 
 
 def mesh_call_recorders(kind=Recorder) -> dict:
@@ -1684,6 +1798,7 @@ def runner_phase(dev, size=RUNNER_SIZE, ntps=RUNNER_TPS, n_pos=RUNNER_POS,
     from aliby_tpu_torch.engine.core import profile_columns, run_pipeline_return_state
     from aliby_tpu_torch.io import zarrlite
     from aliby_tpu_torch.io.dataset import DatasetZarr
+    from aliby_tpu_torch.ops import labels as label_ops
     from aliby_tpu_torch.ops import segsum
     from aliby_tpu_torch.parallel.pipeline_mesh import plan_calls, run_positions_mesh_states
     from aliby_tpu_torch.parallel.positions import stamp_image_kwargs
@@ -1774,7 +1889,8 @@ def runner_phase(dev, size=RUNNER_SIZE, ntps=RUNNER_TPS, n_pos=RUNNER_POS,
                                          lambda: per_position(True, "b"))
         os.environ["ALIBY_MESH_TIMING"] = "1"
         guarded["launches"] = []
-        with counts:
+        fills = FillCalls()
+        with counts, fills:
             (mesh, stats["mesh"]) = run(f"(c) mesh path, {n_pos} positions, chunk {chunk}",
                                         lambda: run_positions_mesh_states(
                                             base, positions, os.path.join(tmp.name, "c"),
@@ -1783,6 +1899,12 @@ def runner_phase(dev, size=RUNNER_SIZE, ntps=RUNNER_TPS, n_pos=RUNNER_POS,
         CompiledStep.track_chunk = track_chunk
         os.environ.pop("ALIBY_MESH_TIMING", None)
     count_launches, guarded["launches"] = guarded["launches"], None
+    n_fill = stats["mesh"]["launches"]["fill_label_holes"]
+    if fills.calls < 1 or n_fill != label_ops.FILL_LAUNCHES * fills.calls:
+        raise AssertionError(f"the mesh path's {fills.calls} masks_from_flows calls launched the "
+                             f"hole fill {n_fill} times ({label_ops.FILL_LAUNCHES} a call)")
+    log(f"[runner] the mesh path's hole fills: {fills.calls} masks_from_flows calls, {n_fill} "
+        f"launches ({label_ops.FILL_LAUNCHES} a call)")
     if len(count_launches) != -(-ntps // chunk) or min(count_launches) <= 0:
         raise AssertionError(f"the mesh's chunks launched the intersection count "
                              f"{count_launches} times")
@@ -3809,6 +3931,7 @@ def main() -> int:
     from aliby_tpu_torch.kernels import _build
     from aliby_tpu_torch.models import flows
     from aliby_tpu_torch.models.segment import dispatch_segmenter, segment_grouped
+    from aliby_tpu_torch.ops import labels as label_ops
     from aliby_tpu_torch.ops import segsum, stencil
     from aliby_tpu_torch.test_data import cellpainting_fields, cellpainting_large_field
 
@@ -3819,6 +3942,7 @@ def main() -> int:
         "successor_prop": stencil.successor_prop,
         "diffuse_heat": stencil.diffuse_heat,
         "binned_sum_cols_batched": segsum.binned_sum_cols_batched,
+        "fill_label_holes": label_ops.fill_label_holes,  # one masks_from_flows call a batch
     }
 
     phase_t = {"start": time.perf_counter()}
@@ -3878,6 +4002,9 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if launches["fill_label_holes"] != label_ops.FILL_LAUNCHES:
+        raise AssertionError(f"one batch launched the hole fill {launches['fill_label_holes']} "
+                             f"times, not {label_ops.FILL_LAUNCHES}")
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
@@ -3913,6 +4040,9 @@ def main() -> int:
     for name, n in big_launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the 1080x1080 field")
+    if big_launches["fill_label_holes"] != label_ops.FILL_LAUNCHES:
+        raise AssertionError(f"the 1080x1080 field launched the hole fill "
+                             f"{big_launches['fill_label_holes']} times")
     big_counts = [int(m[0].max()) for m in big_masks]
     if any(m[0].shape != (1080, 1080) or m[0].max() == 0 for m in big_masks):
         raise AssertionError(f"bad 1080x1080 masks: shapes {[m[0].shape for m in big_masks]}, "
@@ -3920,6 +4050,7 @@ def main() -> int:
     log(f"[slice] one 1080x1080 field x 2 objects: {t_big * 1e3:.1f} ms (first call at this "
         f"size); objects nuclei {big_counts[0]}, cell {big_counts[1]}; launches {big_launches}")
 
+    fill_input, fill_launches = plate_fill_input(dev)
     stage_breakdown(nuclei.engine, np.concatenate([nuclei.images(pixels), cell.images(pixels)]))
     device_share(lambda: segment_grouped([nuclei, cell], pixels))
 
@@ -3998,6 +4129,8 @@ def main() -> int:
                      "table_lookup_batched": fused_rec["channel lookup"]}, fused_launches)
     rows["segment_sum_matmul"] = segment_sum_row(np.random.default_rng(6), dev,
                                                  fused_launches["segment_sum_matmul"])
+    log("[report] the hole fill on the plate batch's own input (launches: that call):")
+    rows["fill_label_holes"] = fill_row(fill_input, fill_launches)
     log("[report] sum kernels against index_add_ in this call (kernel ms / library ms): " + ", ".join(
         f"{tuple(r['shape'])} {r['ms'] / r['library_ms']:.3f}" for r in sum_rows + [
             rows["segment_sum_matmul"]]) + " (the last: segment_sum_matmul, on no path)")

@@ -20,7 +20,9 @@ from aliby_tpu.models import flows as FL
 from aliby_tpu.ops.labels import relabel_dense as jax_relabel_dense
 from aliby_tpu.test_data import render_dense_cells
 from aliby_tpu_torch.models import flows as TF
+from aliby_tpu_torch.ops import labels as TL
 from aliby_tpu_torch.ops.labels import relabel_dense
+from fill_cases import FILL_CASES
 from test_dynamics_parity import CONFIGS
 
 torch.set_num_threads(1)
@@ -100,21 +102,22 @@ def test_masks_from_flows_batched_equals_single():
         assert torch.equal(both[i], one[0])
 
 
-def test_fill_label_holes():
-    H = W = 64
-    yy, xx = np.mgrid[0:H, 0:W]
-    r2 = (yy - 32) ** 2 + (xx - 32) ** 2
-    ann = ((r2 <= 400) & (r2 >= 64)).astype(np.int32)
-    ann[2:10, 2:10] = 2  # a second object touching nothing
-    ann[50:60, 3:5] = 3
-    cshape = np.zeros((H, W), np.int32)  # a U open to the border stays open
-    cshape[40:60, 40:60] = 4
-    cshape[45:60, 45:55] = 0
-    labels = np.stack([ann, np.maximum(ann, cshape)])
+@pytest.mark.parametrize("case", list(FILL_CASES))
+def test_fill_label_holes(case):
+    labels = FILL_CASES[case]()
     want = np.stack([np.asarray(FL.fill_label_holes(jnp.asarray(x))) for x in labels])
-    got = TF.fill_label_holes(torch.from_numpy(labels)).numpy()
+    got = TL.fill_label_holes(torch.from_numpy(labels)).numpy()
     np.testing.assert_array_equal(got, want)
-    assert got[0, 32, 32] == 1
+    if case == "annulus_and_u":
+        assert got[0, 32, 32] == 1
+
+
+def test_fill_label_holes_cpu_takes_the_plain_path():
+    labels = torch.from_numpy(FILL_CASES["annulus_and_u"]())
+    before = TL.fill_label_holes.launches
+    got = TL.fill_label_holes(labels)
+    assert TL.fill_label_holes.launches == before
+    assert torch.equal(got, TL.fill_label_holes_plain(labels))
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (293, 300)])

@@ -9,9 +9,11 @@ pytest-xdist (``tests/conftest.py`` imports JAX) run, from the repo root,
 import numpy as np
 import pytest
 import torch
+from fill_cases import FILL_CASES, pattern_label_maps, ring
 
 from aliby_tpu_torch.extract.reductions import binned_sum_cols
 from aliby_tpu_torch.models.flows import label_median_centers
+from aliby_tpu_torch.ops import labels as label_ops
 from aliby_tpu_torch.ops import segsum, stencil
 
 pytestmark = pytest.mark.cuda
@@ -137,6 +139,84 @@ def test_diffuse_heat_kernel_bit_equal(dev, shape):
     src = label_median_centers(lab, 64).to(torch.float32)
     got = stencil.diffuse_heat(lab, src, 96)
     assert torch.equal(got, stencil.diffuse_heat_plain(lab, src, 96))
+
+
+def _ragged_fill_cases():
+    """Random blobs and rings at shapes that fill no block of the bounds
+    kernel evenly, label values past 2^30 and below 0 among them."""
+    rng = np.random.default_rng(11)
+    out = []
+    for H, W in ((100, 77), (31, 33), (1, 50), (97, 1), (257, 130)):
+        blobs = (rng.random((3, H, W)) < 0.5) * rng.choice([-2, 1, 2, 256, 2**30, 2**30 + 3],
+                                                              (3, H, W))
+        rings = np.maximum(ring(H, W, H // 2, W // 3, 14, 5, 4),
+                           ring(H, W, H // 3, W // 2, 9, 3, 9))
+        out.append(np.concatenate([blobs.astype(np.int32), rings[None]]))
+    return out
+
+
+@pytest.mark.parametrize("case", ["ragged", *FILL_CASES])
+def test_fill_label_holes_kernel_bit_equal(dev, case):
+    batches = _ragged_fill_cases() if case == "ragged" else [FILL_CASES[case]()]
+    for labels in batches:
+        lab = torch.from_numpy(labels)
+        before = label_ops.fill_label_holes.launches
+        got = label_ops.fill_label_holes(lab.to(dev))
+        assert label_ops.fill_label_holes.launches == before + label_ops.FILL_LAUNCHES == before + 5
+        assert torch.equal(got.cpu(), label_ops.fill_label_holes_plain(lab))
+
+
+def test_fill_label_holes_kernel_on_plate_maps(dev):
+    """A call's batch at the benchmark's shape: 9 fields x (nuclei, cells)
+    of 1080^2, bit-equal to the plain version on the card."""
+    lab = torch.from_numpy(pattern_label_maps()).to(dev)
+    got = label_ops.fill_label_holes(lab)
+    want = label_ops.fill_label_holes_plain(lab)
+    assert torch.equal(got, want)
+    assert (want != lab).any()  # the punched holes are filled
+
+
+def test_fill_label_holes_rejects_what_the_kernel_does_not_take(dev):
+    lab = torch.zeros(2, 40, 40, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        label_ops.fill_label_holes(lab.to(torch.int64))
+    with pytest.raises(ValueError):
+        label_ops.fill_label_holes(lab[0])
+    with pytest.raises(ValueError):
+        label_ops.fill_label_holes(lab.transpose(1, 2))
+
+
+def test_fill_label_holes_launches_and_no_host_sync(dev):
+    """Five launches a call, no host synchronisation inside it, and nothing
+    on the device but the five kernels (no memset)."""
+    lab = torch.from_numpy(_ragged_fill_cases()[0]).to(dev)
+    label_ops.fill_label_holes(lab)  # built and loaded before the sync check
+    torch.cuda.synchronize()
+    before = label_ops.fill_label_holes.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        label_ops.fill_label_holes(lab)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert label_ops.fill_label_holes.launches - before == label_ops.FILL_LAUNCHES
+    events = _device_kernels(lambda: label_ops.fill_label_holes(lab))
+    assert all("hole_" in key for key in events), events
+
+
+def test_masks_from_flows_on_the_card_fills_through_the_kernel(dev):
+    """masks_from_flows on a CUDA batch: fill_label_holes.launches rises by
+    the fixed count, and the labels are those of the plain fill on the
+    same unfilled labels."""
+    from aliby_tpu_torch.models import flows
+
+    gt = torch.from_numpy(pattern_label_maps(n_fields=1, size=256, cells=40)).to(dev)
+    fl = flows.masks_to_flows(gt)
+    cellprob = torch.where(gt > 0, 4.0, -4.0)
+    before = label_ops.fill_label_holes.launches
+    got = flows.masks_from_flows(fl, cellprob, flow_threshold=0.4)
+    assert label_ops.fill_label_holes.launches == before + label_ops.FILL_LAUNCHES
+    unfilled = flows.masks_from_flows(fl, cellprob, flow_threshold=0.4, fill_holes=False)
+    assert torch.equal(got, label_ops.fill_label_holes_plain(unfilled))
 
 
 @pytest.mark.parametrize("n_bins,K", [(1, 1), (257, 3), (1500, 8), (65, 17), (257, 32)])
